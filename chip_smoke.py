@@ -5,17 +5,33 @@
 
 Phases, each fatal on failure:
   1. the card's name and power limit (nvidia-smi);
-  2. the build of every CUDA kernel from ``youtube_vln_tpu_torch/ops/csrc``;
-  3. each kernel against its plain PyTorch version on the card, at the beam-
-     eval shapes and at odd lengths, in bf16 and f32;
-  4. the main path: the beam re-ranking scorer (``eval_epoch``) at the full
+  2. the build of every CUDA kernel from ``youtube_vln_tpu_torch/ops/csrc``
+     (one nvcc per source, all at once);
+  3. the forward kernels B1/B2 against their plain PyTorch versions at the
+     beam-eval shapes and at odd lengths, in bf16 and f32;
+  4. the eval path: the beam re-ranking scorer (``eval_epoch``) at the full
      flagship width (``lily_base_config``, random weights from the seed,
      bf16), on a few requests of 30 beams x (60 text + 808 visual tokens),
      on the step-dedup transport and on the dense one; the launch counts
      must show both kernels on that path, the scores must be finite, and
      the kernel path must agree with the plain path on one request;
-  5. a ``kernels`` JSON line: per kernel its launches on the main path,
-     error, time, bound, plain time and a library call's time.
+  5. B1-B4 in train mode at the fine-tuning shapes (96 x 8 heads, D = 128)
+     and at odd lengths, bf16 and f32, dropout 0 and 0.1, with a padded
+     candidate: outputs, row log-sum-exps and gradients against the plain
+     versions (same Philox masks), and in f32 against autograd through the
+     plain forward;
+  6. the train path: the fine-tuning step of recipe 30RS (ranking, global
+     batch 16 instructions x 6 candidates) at full flagship width and
+     depth in bf16 with AdamWRef, 2 warm-up and 5 timed steps; finite
+     losses, moved parameters, finite gradients and 6 launches of each of
+     B1-B4 per micro-step; then 3 steps of the same global batch with
+     gradient accumulation 2;
+  7. the train step's gradients on the kernel path against the plain path
+     at batch 1 x 6 (f32 with dropout off and on, and bf16 against f32);
+  8. one traced train step: device time by kind of kernel, idle share;
+  9. a ``kernels`` JSON line: per kernel its launches on the eval and the
+     train path, error, time, bound, plain time and a library call's time
+     at the train shapes (B1/B2 also at the eval shapes).
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or without the package beside it, the script exits non-zero.
 """
@@ -29,7 +45,12 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
 NC, S_T, L, BOXES, FEAT, N_UNIQUE = 30, 60, 8, 101, 2048, 80
-N_REQUESTS = 4                     # step-dedup requests on the main path
+N_REQUESTS = 4                     # step-dedup requests on the eval path
+# recipe 30RS (README: train.py --ranking --shuffle_visual_features
+# --batch_size 16): 16 instructions x (4 beams + 2 shuffled negatives)
+TRAIN_B, TRAIN_NC, HEADS = 16, 6, 8
+WARMUP_STEPS, TIMED_STEPS = 2, 5
+RATE = 0.1                         # attention dropout of lily_base_config
 # published H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores
 # (the main path's type) and device memory
 PEAK_BF16_FLOPS = 989e12
@@ -82,11 +103,13 @@ def key_bias(gen, b, s, keep=0.9, masked_rows=(0,)):
     return bias
 
 
-def check(name, got, want, rel_tol) -> float:
+def check(name, got, want, rel_tol, floor=1.0) -> float:
+    """max |got - want| <= rel_tol * max(floor, max |want|); gradients use
+    floor 0, so their tolerance scales with the largest gradient."""
     import torch
     if not bool(torch.isfinite(got).all()):
         fail(f"{name}: non-finite output")
-    scale = max(1.0, float(want.float().abs().max()))
+    scale = max(floor, float(want.float().abs().max()))
     err = float((got.float() - want.float()).abs().max())
     tol = rel_tol * scale
     print(f"check {name}: max_abs_err {err:.3e} (tol {tol:.2e} = "
@@ -347,40 +370,466 @@ def main_path(seed):
             for name, r in (("step_dedup", requests[0]), ("dense", dense))},
         "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30}))
     print(json.dumps(device_breakdown(
-        lambda: eval_epoch(model, cfg, requests[1:2], device="cuda"))))
+        lambda: eval_epoch(model, cfg, requests[1:2], device="cuda"),
+        "traced_request")))
     return launches
 
 
-def device_breakdown(run):
-    """One traced request (torch.profiler): device time by kind of kernel,
-    the device's busy share of the request's wall time, and the top
+def device_breakdown(run, name):
+    """One traced run of ``run`` (torch.profiler): device time by kind of
+    kernel, the device's busy share of the run's wall time, and the top
     kernels.  A separate run from the timed ones."""
+    import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run()
+        torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
-    groups = {"attention kernels B1+B2": ("attention_fwd_kernel",),
+    groups = {"attention kernels B1-B4": ("attention_fwd_kernel",
+                                          "attention_bwd_kernel",
+                                          "delta_kernel"),
               "gemm (cuBLAS)": ("gemm", "nvjet", "xmma", "cutlass", "sm90_"),
               "copies": ("memcpy", "memset")}
     by_kind = dict.fromkeys(list(groups) + ["elementwise and other"], 0.0)
     for e in kernels:
-        name = e.key.lower()
+        key = e.key.lower()
         kind = next((g for g, keys in groups.items()
-                     if any(k in name for k in keys)), "elementwise and other")
+                     if any(k in key for k in keys)), "elementwise and other")
         by_kind[kind] += e.self_device_time_total / 1e3
     busy = sum(by_kind.values())
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
-    return {"traced_request": {
+    return {name: {
         "wall_ms": wall_ms, "device_busy_ms": busy,
         "device_idle_share": (1 - busy / wall_ms) if wall_ms else None,
         "device_ms_by_kind": by_kind,
         "top_kernels": [[e.key[:70], e.self_device_time_total / 1e3, e.count]
                         for e in top]}}
+
+
+def leaf(x):
+    """A leaf that requires grad and keeps x's strides."""
+    return x.detach().requires_grad_()
+
+
+def sdpa_backward(problems, rate):
+    """(ms, busiest device kernel) of the backward of
+    F.scaled_dot_product_attention through autograd, one call per
+    (q, k, v, additive mask, dO) problem: the library yardstick of B3/B4."""
+    import torch
+    import torch.nn.functional as F
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    leaves, outs, douts = [], [], []
+    for q, k, v, mask, do in problems:
+        qkv = [leaf(x) for x in (q, k, v)]
+        outs.append(F.scaled_dot_product_attention(*qkv, attn_mask=mask,
+                                                   dropout_p=rate))
+        leaves += qkv
+        douts.append(do)
+
+    def run():
+        return torch.autograd.grad(outs, leaves, douts, retain_graph=True)
+    ms = cuda_ms(run)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busiest = max(kernels, key=lambda e: e.self_device_time_total).key[:80]
+    return ms, busiest
+
+
+def train_kernel_checks(seed):
+    """Phase 5: B1-B4 in train mode against their plain versions; returns
+    the numbers of the kernels line at the train shapes."""
+    import torch
+    import torch.nn.functional as F
+    from youtube_vln_tpu_torch.ops import attention as A
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    bf16, f32 = torch.bfloat16, torch.float32
+    s_v, bh = L * BOXES, TRAIN_B * TRAIN_NC
+    drop_seed = 0x5EED0000 + seed
+    rows = {}
+
+    def tol(dtype):
+        return TOL[str(dtype)[6:]]
+
+    def check_grads(tag, got, twin, auto, names, dtype):
+        err = 0.0
+        for n, g, t in zip(names, got, twin):
+            err = max(err, check(f"{tag} d{n} vs plain bwd", g, t, tol(dtype), floor=0))
+        if auto is not None:    # f32: autograd through the plain forward
+            for n, g, a in zip(names, got, auto):
+                check(f"{tag} d{n} vs autograd of plain fwd", g, a, tol(dtype), floor=0)
+        return err
+
+    # B1 (train forward with LSE) and B3; row 0 of every bias is a padded
+    # candidate (every key at -10000)
+    for i, (dtype, b, s_q, s_kv, d, rate) in enumerate((
+            (bf16, bh, s_v, s_v, 128, RATE), (bf16, 8, s_v, s_v, 128, 0.0),
+            (f32, 8, s_v, s_v, 128, RATE), (bf16, 8, 61, 807, 128, RATE),
+            (f32, 8, 807, 61, 64, RATE), (f32, 8, 61, 807, 64, 0.0))):
+        tag = f"{dtype} {b}x{HEADS} {s_q}x{s_kv} D={d} rate {rate}"
+        q = heads_view(gen, b, HEADS, s_q, d, dtype)
+        k, v = (heads_view(gen, b, HEADS, s_kv, d, dtype) for _ in range(2))
+        do = heads_view(gen, b, HEADS, s_q, d, dtype)
+        bias = key_bias(gen, b, s_kv)
+        out, lse, _ = A._attention_fwd(q, k, v, bias, rate, drop_seed, True)
+        err_f = check(f"B1 train fwd {tag}", out,
+                      A.attention_reference(q, k, v, bias, rate, drop_seed), tol(dtype))
+        lse_ref = A.attention_lse_reference(q, k, bias)
+        check(f"B1 lse {tag}", lse[1:], lse_ref[1:], 1e-5)
+        check(f"B1 lse padded row {tag}", lse[:1], lse_ref[:1], 1e-6)
+        qkv = [leaf(x) for x in (q, k, v)]
+        got = torch.autograd.grad(
+            A.fused_attention(*qkv, bias, dropout_rate=rate, seed=drop_seed), qkv, do)
+        twin = A.attention_bwd_reference(q, k, v, bias, do, rate, drop_seed)
+        auto = (torch.autograd.grad(A.attention_reference(*qkv, bias, rate, drop_seed),
+                                    qkv, do) if dtype == f32 else None)
+        err_b = check_grads(f"B3 {tag}", got, twin, auto, "qkv", dtype)
+        if i > 0:
+            continue
+        del got, twin
+        mask4 = bias[:, None, None, :].to(dtype)
+        n = q.shape[0] * q.shape[1] * s_q * s_kv * d
+        fwd_bound = bound_ms(4 * n, 4 * nbytes(q) + nbytes(bias, lse))
+        bwd_bound = bound_ms(10 * n, 8 * nbytes(q) + nbytes(bias, lse))
+        lib_ms, lib_kernel = sdpa_backward([(q, k, v, mask4, do)], rate)
+        rows["attention_fwd"] = dict(
+            name="attention_fwd", route="cuda",
+            source="youtube_vln_tpu_torch/ops/csrc/attention_fwd.cu",
+            replaces="youtube_vln_tpu/ops/attention.py:48", max_abs_err=err_f,
+            ms=cuda_ms(lambda: A._attention_fwd(q, k, v, bias, rate, drop_seed, True)),
+            plain_ms=cuda_ms(lambda: (A.attention_reference(q, k, v, bias, rate, drop_seed),
+                                      A.attention_lse_reference(q, k, bias)), iters=5),
+            bound_ms=fwd_bound[0], bound_by=fwd_bound[1],
+            library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask4, dropout_p=rate)),
+            shape=f"[{bh}, {HEADS}, {s_q}, {d}] bf16, dropout {rate}, LSE out")
+        rows["attention_bwd"] = dict(
+            name="attention_bwd", route="cuda",
+            source="youtube_vln_tpu_torch/ops/csrc/attention_bwd.cu",
+            replaces="youtube_vln_tpu/ops/attention.py:67", max_abs_err=err_b,
+            ms=cuda_ms(lambda: A._attention_bwd(q, k, v, bias, out, do, lse, rate,
+                                                drop_seed)),
+            plain_ms=cuda_ms(lambda: A.attention_bwd_reference(q, k, v, bias, do, rate,
+                                                               drop_seed), iters=5),
+            bound_ms=bwd_bound[0], bound_by=bwd_bound[1], library_ms=lib_ms,
+            library=f"backward of F.scaled_dot_product_attention, float mask, "
+                    f"dropout {rate}: {lib_kernel}",
+            shape=f"[{bh}, {HEADS}, {s_q}, {d}] bf16, dropout {rate}")
+        del out, lse, q, k, v, do, mask4
+        torch.cuda.empty_cache()
+
+    # B2 (both directions, train forward with LSE) and B4
+    names = ("q1", "k1", "v1", "q2", "k2", "v2")
+    for i, (dtype, b, sv, st, d, rate) in enumerate((
+            (bf16, bh, s_v, S_T, 128, RATE), (bf16, 8, s_v, S_T, 128, 0.0),
+            (f32, 8, s_v, S_T, 128, RATE), (bf16, 8, 807, 61, 64, RATE),
+            (f32, 8, 807, 61, 64, RATE))):
+        tag = f"{dtype} {b}x{HEADS} {st}<->{sv} D={d} rate {rate}"
+        vis = [heads_view(gen, b, HEADS, sv, d, dtype) for _ in range(3)]
+        txt = [heads_view(gen, b, HEADS, st, d, dtype) for _ in range(3)]
+        vb, tb = key_bias(gen, b, sv), key_bias(gen, b, st)
+        do1 = heads_view(gen, b, HEADS, st, d, dtype)
+        do2 = heads_view(gen, b, HEADS, sv, d, dtype)
+        ctx1, ctx2, lse1, lse2, _ = A._bi_attention_fwd(
+            *vis, *txt, vb, tb, rate, rate, drop_seed, True)
+        want = A.bi_attention_reference(*vis, *txt, vb, tb, rate, rate, drop_seed)
+        err_f = max(check(f"B2 train fwd ctx1 {tag}", ctx1, want[0], tol(dtype)),
+                    check(f"B2 train fwd ctx2 {tag}", ctx2, want[1], tol(dtype)))
+        for lse, ref, side in ((lse1, A.attention_lse_reference(txt[0], vis[1], vb), "1"),
+                               (lse2, A.attention_lse_reference(vis[0], txt[1], tb), "2")):
+            check(f"B2 lse{side} {tag}", lse[1:], ref[1:], 1e-5)
+            check(f"B2 lse{side} padded row {tag}", lse[:1], ref[:1], 1e-6)
+        ops = [leaf(x) for x in vis + txt]
+        got = torch.autograd.grad(A.fused_bi_attention(
+            *ops, vb, tb, rate1=rate, rate2=rate, seed=drop_seed), ops, (do1, do2))
+        twin = A.bi_attention_bwd_reference(*vis, *txt, vb, tb, do1, do2, rate, rate,
+                                            drop_seed)
+        auto = (torch.autograd.grad(A.bi_attention_reference(
+            *ops, vb, tb, rate, rate, drop_seed), ops, (do1, do2))
+            if dtype == f32 else None)
+        err_b = check_grads(f"B4 {tag}", got, twin, auto, names, dtype)
+        if i > 0:
+            continue
+        del got, twin
+        (q1, k1, v1), (q2, k2, v2) = vis, txt
+        vm, tm = vb[:, None, None, :].to(dtype), tb[:, None, None, :].to(dtype)
+        n = q1.shape[0] * q1.shape[1] * st * sv * d
+        vis_bytes, txt_bytes = nbytes(q1), nbytes(q2)
+        fwd_bound = bound_ms(8 * n, 4 * (vis_bytes + txt_bytes) + nbytes(vb, tb, lse1, lse2))
+        bwd_bound = bound_ms(20 * n, 8 * (vis_bytes + txt_bytes) + nbytes(vb, tb, lse1, lse2))
+        lib_ms, lib_kernel = sdpa_backward(
+            [(q2, k1, v1, vm, do1), (q1, k2, v2, tm, do2)], rate)
+        rows["bi_attention_fwd"] = dict(
+            name="bi_attention_fwd", route="cuda",
+            source="youtube_vln_tpu_torch/ops/csrc/attention_fwd.cu",
+            replaces="youtube_vln_tpu/ops/attention.py:288", max_abs_err=err_f,
+            ms=cuda_ms(lambda: A._bi_attention_fwd(*vis, *txt, vb, tb, rate, rate,
+                                                   drop_seed, True)),
+            plain_ms=cuda_ms(lambda: (
+                A.bi_attention_reference(*vis, *txt, vb, tb, rate, rate, drop_seed),
+                A.attention_lse_reference(q2, k1, vb),
+                A.attention_lse_reference(q1, k2, tb)), iters=5),
+            bound_ms=fwd_bound[0], bound_by=fwd_bound[1],
+            # no single library call runs both directions: two SDPA calls
+            library_ms=cuda_ms(lambda: (
+                F.scaled_dot_product_attention(q2, k1, v1, attn_mask=vm, dropout_p=rate),
+                F.scaled_dot_product_attention(q1, k2, v2, attn_mask=tm, dropout_p=rate))),
+            shape=f"[{bh}, {HEADS}] {st}<->{sv}, D {d}, bf16, dropout {rate}, LSE out")
+        rows["bi_attention_bwd"] = dict(
+            name="bi_attention_bwd", route="cuda",
+            source="youtube_vln_tpu_torch/ops/csrc/attention_bwd.cu",
+            replaces="youtube_vln_tpu/ops/attention.py:324", max_abs_err=err_b,
+            ms=cuda_ms(lambda: A._bi_attention_bwd(
+                *vis, *txt, vb, tb, ctx1, ctx2, lse1, lse2, do1, do2, rate, rate,
+                drop_seed)),
+            plain_ms=cuda_ms(lambda: A.bi_attention_bwd_reference(
+                *vis, *txt, vb, tb, do1, do2, rate, rate, drop_seed), iters=5),
+            bound_ms=bwd_bound[0], bound_by=bwd_bound[1], library_ms=lib_ms,
+            library=f"backward of two F.scaled_dot_product_attention calls, "
+                    f"float masks, dropout {rate}: {lib_kernel}",
+            shape=f"[{bh}, {HEADS}] {st}<->{sv}, D {d}, bf16, dropout {rate}")
+        del ctx1, ctx2, lse1, lse2, vis, txt, do1, do2
+        torch.cuda.empty_cache()
+    return rows
+
+
+def train_batch(rng, padded: bool):
+    """One global batch of recipe 30RS on the candidate-dedup transport, in
+    the loader's layout: 16 instructions x 6 candidates, each candidate its
+    own unique trajectory (the negatives are shuffled copies), f16
+    features.  With ``padded`` the last instruction's last candidate is
+    padding (opt_mask false, every text and visual key masked)."""
+    import numpy as np
+    b, nc, s_v = TRAIN_B, TRAIN_NC, L * BOXES
+    n_words = rng.integers(20, S_T, b)
+    instr_mask = np.repeat((np.arange(S_T)[None] < n_words[:, None])[:, None],
+                           nc, axis=1).astype(np.int32)
+    tokens = rng.integers(1, 30522, (b, nc, S_T)).astype(np.int32) * instr_mask
+    image_mask = np.zeros((b, nc, s_v), np.int32)
+    for i in range(b):
+        for j in range(nc):
+            for step in range(L):        # 36..101 detected boxes per step
+                n = int(rng.integers(36, BOXES + 1))
+                image_mask[i, j, step * BOXES:step * BOXES + n] = 1
+    locs = rng.random((b, nc, s_v, 12)).astype(np.float32)
+    locs[..., 11] = np.repeat(np.arange(L), BOXES)
+    feats = rng.normal(size=(b, nc, s_v, FEAT)).astype(np.float16)
+    opt = np.ones((b, nc), bool)
+    if padded:
+        opt[-1, -1] = False
+        instr_mask[-1, -1] = 0
+        image_mask[-1, -1] = 0
+        feats[-1, -1] = 0
+    return {"instr_tokens": tokens, "instr_mask": instr_mask,
+            "segment_ids": np.zeros_like(tokens),
+            "instr_targets": np.full_like(tokens, -1),
+            "uniq_image_features": feats, "uniq_image_locations": locs,
+            "uniq_image_mask": image_mask,
+            "cand_index": np.tile(np.arange(nc, dtype=np.int32), (b, 1)),
+            "opt_mask": opt, "ranking_target": np.zeros(b, np.int32)}
+
+
+def model_flops_per_traj(cfg, s_t, s_v):
+    """Matmul operations of one trajectory's forward and backward (3x the
+    forward's multiply-adds x 2), from the configuration: the projections,
+    feed-forward blocks, attention products and the visual embedding."""
+    h, hv, bi = cfg.hidden_size, cfg.v_hidden_size, cfg.bi_hidden_size
+    text = s_t * (4 * h * h + 2 * h * cfg.intermediate_size) + 2 * s_t * s_t * h
+    vis = (s_v * (4 * hv * hv + 2 * hv * cfg.v_intermediate_size)
+           + 2 * s_v * s_v * hv)
+    conn = (s_v * 3 * hv * bi + s_t * 3 * h * bi + 4 * s_t * s_v * bi
+            + s_v * bi * hv + s_t * bi * h
+            + s_v * 2 * hv * cfg.v_intermediate_size
+            + s_t * 2 * h * cfg.intermediate_size)
+    macs = (cfg.num_hidden_layers * text + cfg.v_num_hidden_layers * vis
+            + len(cfg.v_biattention_id) * conn + s_v * cfg.v_feature_size * hv)
+    return 3 * 2 * macs
+
+
+def run_steps(step, batches, n, next_seed):
+    """(ms per step, peak device memory, launch counts, metrics) of ``n``
+    train steps, the counts and the peak reset just before them."""
+    import torch
+    from youtube_vln_tpu_torch.ops import attention as A
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    A.reset_launch_counts()
+    t0 = time.perf_counter()
+    metrics = [step(batches[i % len(batches)], next_seed()) for i in range(n)]
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / n
+    return ms, torch.cuda.max_memory_allocated(), dict(A.LAUNCHES), metrics
+
+
+def check_launches(cfg, launches, micro, what):
+    """6 launches of each of B1-B4 per micro-step (one per vision layer and
+    one per connection layer)."""
+    print(f"launches on the {what} ({micro} micro-steps): {launches}")
+    for name, per in (("attention_fwd", cfg.v_num_hidden_layers),
+                      ("attention_bwd", cfg.v_num_hidden_layers),
+                      ("bi_attention_fwd", len(cfg.v_biattention_id)),
+                      ("bi_attention_bwd", len(cfg.v_biattention_id))):
+        if launches[name] != per * micro:
+            fail(f"{what}: {name} launched {launches[name]} times, expected "
+                 f"{per} x {micro}")
+
+
+def train_path(seed):
+    """Phase 6: the 30RS fine-tuning step at full flagship width, then the
+    same global batch with gradient accumulation 2; returns the launch
+    counts of the timed steps without accumulation."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from youtube_vln_tpu_torch import lily_base_config
+    from youtube_vln_tpu_torch.config import RunConfig
+    from youtube_vln_tpu_torch.device import to_device
+    from youtube_vln_tpu_torch.models import Lily
+    from youtube_vln_tpu_torch.parallel.train_step import (_task_config,
+                                                           build_train_step,
+                                                           create_train_state,
+                                                           loss_fn)
+
+    cfg = lily_base_config(ranking=True, compute_dtype="bfloat16")
+    args = RunConfig(ranking=True, pretrain=False, shuffle_visual_features=True,
+                     num_negatives=2, learning_rate=4e-5, weight_decay=1e-2,
+                     lr_schedule="warmup_linear")
+    args.validate()
+    model = Lily(cfg, device="cuda").init_weights(seed)
+    n_params = sum(p.numel() for p in model.parameters())
+    # a 2000-step schedule (100 steps x 20 epochs, warm-up 0.2)
+    optimizer, _ = create_train_state(model, args, steps_per_epoch=100)
+    step = build_train_step(model, cfg, args, optimizer, device="cuda")
+    rng = np.random.default_rng(seed)
+    dev = torch.device("cuda")
+    batches = [to_device(train_batch(rng, padded), dev) for padded in (True, False)]
+    seeds = torch.Generator().manual_seed(seed)   # the host draws step seeds
+
+    def next_seed():
+        return int(torch.randint(0, 2 ** 63 - 1, (1,), generator=seeds))
+
+    print(f"train model: lily_base_config, {n_params} parameters, bf16, "
+          f"AdamWRef, global batch {TRAIN_B} x {TRAIN_NC}")
+    before = [p.detach().clone() for p in model.parameters()]
+    metrics = [step(batches[i % 2], next_seed()) for i in range(WARMUP_STEPS)]
+    ms, peak, launches, timed = run_steps(step, batches, TIMED_STEPS, next_seed)
+    check_launches(cfg, launches, TIMED_STEPS, "train path")
+    losses = [float(m["loss/train"]) for m in metrics + timed]
+    print(f"train losses: {losses}")
+    if not np.isfinite(losses).all():
+        fail("train path: non-finite loss")
+    moved = sum(int(not torch.equal(a, p.detach()))
+                for a, p in zip(before, model.parameters()))
+    print(f"parameters moved: {moved} of {len(before)} tensors")
+    if moved == 0:
+        fail("train path: no parameter moved")
+    del before
+
+    # one more micro-step, untimed, to read the gradients before the update
+    model.train()
+    loss_fn(model, batches[0], _task_config(args, True), next_seed())[0].backward()
+    bad = [n for n, p in model.named_parameters()
+           if p.grad is not None and not bool(torch.isfinite(p.grad).all())]
+    if bad:
+        fail(f"train path: non-finite gradients in {bad[:5]}")
+    optimizer.zero_grad(set_to_none=True)
+
+    flops = model_flops_per_traj(cfg, S_T, L * BOXES) * TRAIN_B * TRAIN_NC
+    print(json.dumps({
+        "train_path": "build_train_step, recipe 30RS, bf16, flagship width and "
+                      "depth, batches resident on the device",
+        "steps": TIMED_STEPS, "ms_per_step": ms,
+        "trajectories_per_s": TRAIN_B * TRAIN_NC / ms * 1e3,
+        "instructions_per_s": TRAIN_B / ms * 1e3,
+        "peak_memory_gib": peak / 2 ** 30,
+        "step_flops": flops, "step_bound_ms": flops / PEAK_BF16_FLOPS * 1e3,
+        "losses": losses}))
+    print(json.dumps(device_breakdown(
+        lambda: step(batches[0], next_seed()), "traced_train_step")))
+
+    # the same global batch in two micro-steps of 8 x 6
+    args2 = dataclasses.replace(args, gradient_accumulation_steps=2)
+    step2 = build_train_step(model, cfg, args2, optimizer, device="cuda")
+    split = [{k: v.reshape((2, -1) + tuple(v.shape[1:])) for k, v in b.items()}
+             for b in batches]
+    step2(split[0], next_seed())
+    ms2, peak2, launches2, timed2 = run_steps(step2, split, 3, next_seed)
+    check_launches(cfg, launches2, 3 * 2, "train path with accumulation 2")
+    losses2 = [float(m["loss/train"]) for m in timed2]
+    if not np.isfinite(losses2).all():
+        fail("train path with accumulation 2: non-finite loss")
+    print(json.dumps({
+        "train_path_accumulation_2": "the same global batch as two micro-steps",
+        "steps": 3, "ms_per_step": ms2, "peak_memory_gib": peak2 / 2 ** 30,
+        "losses": losses2}))
+
+    # the instruction that carries the padded candidate
+    path_gradient_check(model, cfg, args, {k: v[-1:] for k, v in
+                                           train_batch(rng, True).items()})
+    return launches
+
+
+def path_gradient_check(model, cfg, args, batch):
+    """Phase 7: gradients of one step at batch 1 x 6 on the kernel path
+    against the plain path (kernel sites on the kernels' plain versions)."""
+    import torch
+    from youtube_vln_tpu_torch.device import to_device
+    from youtube_vln_tpu_torch.ops import attention as A
+    from youtube_vln_tpu_torch.parallel.train_step import _task_config, loss_fn
+
+    batch = to_device(batch, torch.device("cuda"))
+    tasks = _task_config(args, True)
+    params = [p for p in model.parameters() if p.requires_grad]
+    drop_seed = 0xD50 + 1
+
+    def grads(kernels, dtype, dropout):
+        """The step's gradients; the kernel path must launch each of B1-B4
+        once per layer, the plain path none of them."""
+        cfg.use_attention_kernels, cfg.compute_dtype = kernels, dtype
+        model.train(dropout)
+        A.reset_launch_counts()
+        try:
+            loss = loss_fn(model, batch, tasks, drop_seed)[0]
+            g = torch.autograd.grad(loss, params, allow_unused=True)
+        finally:
+            cfg.use_attention_kernels, cfg.compute_dtype = True, "bfloat16"
+        what = (f"gradient check ({'kernel' if kernels else 'plain'} path, "
+                f"{dtype}, dropout {'on' if dropout else 'off'})")
+        if kernels:
+            check_launches(cfg, dict(A.LAUNCHES), 1, what)
+        elif any(A.LAUNCHES.values()):
+            fail(f"{what}: kernels launched: {dict(A.LAUNCHES)}")
+        return [torch.zeros_like(p) if x is None else x.float()
+                for p, x in zip(params, g)]
+
+    def rel_l2(a, b):
+        num = sum(float(((x - y) ** 2).sum()) for x, y in zip(a, b))
+        den = sum(float((y ** 2).sum()) for y in b)
+        return (num / den) ** 0.5
+
+    for dropout in (False, True):
+        err = rel_l2(grads(True, "float32", dropout), grads(False, "float32", dropout))
+        print(f"check train-step gradients, kernel vs plain path, f32, dropout "
+              f"{'on' if dropout else 'off'}: relative L2 {err:.3e} (tol 1e-3)")
+        if not err <= 1e-3:
+            fail("train-step gradients: kernel and plain paths disagree")
+    exact = grads(False, "float32", False)
+    k_err = rel_l2(grads(True, "bfloat16", False), exact)
+    p_err = rel_l2(grads(False, "bfloat16", False), exact)
+    print(f"check train-step gradients in bf16 against f32: kernel path "
+          f"{k_err:.3e}, plain path {p_err:.3e} (tol 2 x plain)")
+    if not k_err <= 2 * p_err:
+        fail("train-step gradients: the kernel path's bf16 error exceeds "
+             "twice the plain path's")
 
 
 def main() -> int:
@@ -414,13 +863,18 @@ def main() -> int:
             if "registers" in line or "spill" in line or "Compiling" in line:
                 print(f"  {name}: {line.strip()}")
 
-    rows = kernel_checks(args.seed)
-    launches = main_path(args.seed)
+    eval_rows = kernel_checks(args.seed)
+    launches_eval = main_path(args.seed)
+    rows = train_kernel_checks(args.seed)
+    launches_train = train_path(args.seed)
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     for name, row in rows.items():
-        row["launches"] = launches[name]
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows.values()]}))
+        row["launches_eval"] = launches_eval[name]
+        row["launches_train"] = launches_train[name]
+        row["launches"] = launches_eval[name] + launches_train[name]
+        if name in eval_rows:
+            row["eval_shape"] = {k: eval_rows[name][k] for k in keys}
+    print(json.dumps({"kernels": list(rows.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -107,11 +107,14 @@ def test_b2_plain_matches_pallas(s_v, s_t, d):
 
 def test_cpu_wrappers_launch_nothing():
     rng = np.random.default_rng(3)
-    q = _t(_qkv(rng, 1, 2, 64, 64))
+    q = _t(_qkv(rng, 1, 2, 64, 64)).requires_grad_()
     port.reset_launch_counts()
-    port.fused_attention(q, q, q, None)
-    port.fused_bi_attention(q, q, q, q, q, q)
-    assert port.LAUNCHES == {"attention_fwd": 0, "bi_attention_fwd": 0}
+    out = port.fused_attention(q, q, q, None)
+    ctx1, ctx2 = port.fused_bi_attention(q, q, q, q, q, q)
+    (out.sum() + ctx1.sum() + ctx2.sum()).backward()
+    assert q.grad is not None
+    assert port.LAUNCHES == {"attention_fwd": 0, "bi_attention_fwd": 0,
+                             "attention_bwd": 0, "bi_attention_bwd": 0}
 
 
 @pytest.mark.parametrize("s_q,s_kv,d", [
@@ -122,11 +125,23 @@ def test_dispatch_matches_pallas_heuristic(s_q, s_kv, d):
 
 
 def test_dropout_is_refused():
-    q = torch.zeros(1, 1, 64, 64)
-    with pytest.raises(NotImplementedError):
-        port.fused_attention(q, q, q, dropout_rate=0.1)
-    with pytest.raises(NotImplementedError):
-        port.fused_bi_attention(q, q, q, q, q, q, dropout_rate=0.1)
+    """Rates outside [0, 1) are refused; a rate inside it is accepted, and a
+    fixed seed repeats its mask while another seed changes it."""
+    q = _t(_qkv(np.random.default_rng(8), 1, 2, 64, 64))
+    for rate in (-0.1, 1.0):
+        with pytest.raises(ValueError):
+            port.fused_attention(q, q, q, dropout_rate=rate)
+        with pytest.raises(ValueError):
+            port.fused_bi_attention(q, q, q, q, q, q, rate1=rate)
+    out = port.fused_attention(q, q, q, dropout_rate=0.1, seed=3)
+    torch.testing.assert_close(
+        out, port.fused_attention(q, q, q, dropout_rate=0.1, seed=3), rtol=0, atol=0)
+    assert not torch.equal(out, port.fused_attention(q, q, q, dropout_rate=0.1, seed=4))
+    assert not torch.equal(out, port.fused_attention(q, q, q))
+    ctx = port.fused_bi_attention(q, q, q, q, q, q, rate1=0.1, rate2=0.1, seed=3)
+    again = port.fused_bi_attention(q, q, q, q, q, q, rate1=0.1, rate2=0.1, seed=3)
+    for a, b in zip(ctx, again):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
 def test_non_cuda_device_is_refused():
@@ -161,9 +176,12 @@ def test_output_is_a_merge_heads_view():
 
 
 def test_problem_struct_mirrors_the_c_layout():
-    """struct Problem in csrc/attention_fwd.cu: 5 pointers, 12 int64
-    strides, 2 ints."""
-    assert ctypes.sizeof(port._Problem) == 5 * 8 + 12 * 8 + 2 * 4
-    assert port._Problem.q_sb.offset == 40
-    assert port._Problem.o_ss.offset == 40 + 11 * 8
-    assert port._Problem.s_kv.offset == 140
+    """struct Problem in csrc/attention_fwd.cu: 6 pointers, 12 int64
+    strides, 2 ints, then struct vln_philox::Dropout of csrc/philox.cuh
+    (4 uint32, a float, an int)."""
+    assert ctypes.sizeof(port._Dropout) == 6 * 4
+    assert ctypes.sizeof(port._Problem) == 6 * 8 + 12 * 8 + 2 * 4 + 6 * 4
+    assert port._Problem.q_sb.offset == 48
+    assert port._Problem.o_ss.offset == 48 + 11 * 8
+    assert port._Problem.s_kv.offset == 148
+    assert port._Problem.dropout.offset == 152

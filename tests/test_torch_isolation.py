@@ -21,16 +21,24 @@ leaked = sorted(m for m in sys.modules
                 if m == "jax" or m.startswith("jax.")
                 or m == "youtube_vln_tpu" or m.startswith("youtube_vln_tpu."))
 assert not leaked, leaked
-assert len(names) >= 12, names
+for module in ("device", "ops.philox", "training.losses", "training.optimization",
+               "parallel.train_step"):
+    assert pkg.__name__ + "." + module in names, module
 
 import numpy as np
 from youtube_vln_tpu_torch import tiny_config
+from youtube_vln_tpu_torch.config import RunConfig
 from youtube_vln_tpu_torch.evaluation import beam_eval
 from youtube_vln_tpu_torch.models import Lily
+from youtube_vln_tpu_torch.parallel import train_step
 cfg = tiny_config()
+args = RunConfig(ranking=True)
 model = Lily(cfg, device="cpu").init_weights(0)
+optimizer, _ = train_step.create_train_state(model, args, 1)
 for call in (lambda: beam_eval.eval_epoch(model, cfg, []),
-             lambda: beam_eval.build_score_step(model, cfg)):
+             lambda: beam_eval.build_score_step(model, cfg),
+             lambda: train_step.build_train_step(model, cfg, args, optimizer),
+             lambda: train_step.build_eval_step(model, cfg, args)):
     try:
         call()
     except RuntimeError as e:
@@ -38,6 +46,7 @@ for call in (lambda: beam_eval.eval_epoch(model, cfg, []),
     else:
         raise SystemExit("an entry point ran without CUDA and without device='cpu'")
 assert beam_eval.eval_epoch(model, cfg, [], device="cpu") == []
+train_step.build_train_step(model, cfg, args, optimizer, device="cpu")
 print("isolated")
 """
 
@@ -58,8 +67,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 def test_sources_hold_no_jax_import():
     pattern = re.compile(r"^\s*(import|from)\s+(jax|youtube_vln_tpu)\b(?!_torch)",
                          re.MULTILINE)
-    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
-    assert len(files) >= 13
+    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py",
+                                          REPO / "eval_timing.py"]
+    assert {"philox.py", "optimization.py", "device.py"} <= {f.name for f in files}
     for f in files:
         assert not pattern.search(f.read_text()), f
 
@@ -73,3 +83,9 @@ def test_chip_smoke_fails_without_a_card(tmp_path):
         r = _run(["chip_smoke.py"], cwd)
         assert r.returncode != 0, r.stdout
         assert '"ok": true' not in r.stdout
+
+
+def test_eval_timing_fails_without_a_card():
+    r = _run(["eval_timing.py"], REPO)
+    assert r.returncode != 0, r.stdout
+    assert "no CUDA device" in r.stderr

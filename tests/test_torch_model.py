@@ -154,9 +154,20 @@ def test_normalize_adds_missing_bert_prefix():
 
 
 def test_train_mode_is_refused():
-    model = Lily(tiny_config(), device="cpu").init_weights(0)
-    with pytest.raises(NotImplementedError):
-        model(*(torch.from_numpy(x) for x in _batch(0, 1, 8, 8, 64, 256)))
+    """Train mode without a dropout seed is refused; with one, the outputs
+    are finite, repeat for the seed and differ from eval mode."""
+    model = Lily(tiny_config(**HEADS), device="cpu").init_weights(0)
+    batch = [torch.from_numpy(x) for x in _batch(0, 2, 8, 8, 64, 256)]
+    with pytest.raises(ValueError):
+        model(*batch)
+    with torch.no_grad():
+        train = model(*batch, seed=11)
+        again = model(*batch, seed=11)
+        evals = model.eval()(*batch)
+    for key in evals:
+        assert torch.isfinite(train[key]).all(), key
+        torch.testing.assert_close(train[key], again[key], rtol=0, atol=0)
+        assert not torch.equal(train[key], evals[key]), key
 
 
 def test_seeded_init_is_deterministic():
@@ -166,3 +177,23 @@ def test_seeded_init_is_deterministic():
     for k in a:
         torch.testing.assert_close(a[k], b[k], rtol=0, atol=0)
     assert float(a["bert.embeddings.word_embeddings.weight"][0].abs().sum()) == 0
+
+
+@pytest.mark.parametrize("rate", [0.1, 0.5, 1.0])
+def test_xla_path_dropout_quantises_the_keep_rate(rate):
+    """The JAX package's XLA-path dropout (models/layers.py:78-94): uint8
+    draws, keep probability thresh / 256 with thresh = round(keep * 256)
+    (230 / 256 = 0.8984 at rate 0.1), kept values scaled by 256 / thresh,
+    zeros where thresh is 0."""
+    from youtube_vln_tpu_torch.models.layers import DropoutRng, dropout
+    x = torch.ones(256, 1024)
+    y = dropout(x, rate, DropoutRng(3, "cpu"))
+    thresh = min(round((1.0 - rate) * 256), 255)
+    if thresh == 0:
+        assert not y.any()
+        return
+    kept = y != 0
+    torch.testing.assert_close(y[kept], torch.full_like(y[kept], 256.0 / thresh))
+    n, p = x.numel(), thresh / 256
+    assert abs(int(kept.sum()) - n * p) <= 4 * (n * p * (1 - p)) ** 0.5
+    assert torch.equal(dropout(x, rate, None), x)

@@ -12,6 +12,10 @@ ignored.  Differences from the JAX copy:
     (``use_pallas_attention`` / ``use_pallas_epilogue`` / ``remat``): it
     routes the vision self-attention and the co-attention layers through the
     hand-written CUDA kernels of ``ops/attention.py``.
+
+``RunConfig`` copies the fields of ``youtube_vln_tpu/config.py:RunConfig``
+that the train step reads, with the same defaults and the ``validate``
+checks that concern them.
 """
 from __future__ import annotations
 
@@ -167,3 +171,47 @@ def tiny_config(**overrides) -> LilyConfig:
     )
     cfg.update(overrides)
     return LilyConfig(**cfg)
+
+
+@dataclass
+class RunConfig:
+    """The training fields of the JAX package's ``RunConfig`` (reference
+    ``utils/cli.py`` names, so recipes translate 1:1)."""
+
+    # tasks
+    ranking: bool = False
+    traj_judge: bool = False
+    masked_vision: bool = False
+    masked_language: bool = False
+    traj_loss_scale: float = 1.0
+    not_traj_judge_data: bool = False
+    pretrain: bool = True
+    # negatives
+    num_negatives: int = 2
+    shuffle_visual_features: bool = False
+    mask_action_rate: float = 0.0
+    # training
+    num_epochs: int = 20
+    gradient_accumulation_steps: int = 1
+    learning_rate: float = 4e-5
+    warmup_proportion: float = 0.2
+    cooldown_factor: float = 2.0
+    weight_decay: float = 1e-2
+    no_scheduler: bool = False
+    ConstantLR: bool = False
+    lr_schedule: str = "warmup_linear"  # a key of training.optimization.SCHEDULES
+    sparse_task_heads: bool = True      # decoders only on target rows
+
+    def validate(self) -> None:
+        """Reference ``utils/utils_init.py:13-23`` (val_args)."""
+        if not (self.masked_vision or self.masked_language or self.ranking
+                or self.traj_judge):
+            raise ValueError(
+                "No training objective selected, add --masked_vision, "
+                "--masked_language, --ranking, or --traj_judge")
+        if (not self.pretrain and self.traj_judge
+                and ((self.ranking or self.not_traj_judge_data)
+                     ^ self.shuffle_visual_features)):
+            raise ValueError(
+                "when finetuning, traj_judge requires matching "
+                "--shuffle_visual_features usage")

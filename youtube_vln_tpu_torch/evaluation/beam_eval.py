@@ -18,31 +18,9 @@ import numpy as np
 import torch
 
 from ..config import LilyConfig
+from ..device import resolve_device, to_device
 from ..parallel.train_step import expand_beam_steps, flatten_candidates
 from ..training.losses import pad_packed
-
-
-def resolve_device(device) -> torch.device:
-    """The device an entry point runs on; CUDA unless the caller asks for
-    the CPU, and an error when CUDA is asked for and absent."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device is available; pass device='cpu' "
-                           "to run on the CPU")
-    return dev
-
-
-def to_device(batch: Dict[str, np.ndarray], device: torch.device
-              ) -> Dict[str, torch.Tensor]:
-    """numpy batch -> tensors on ``device``; to a GPU through pinned host
-    memory and non-blocking copies on the current stream."""
-    out = {}
-    for k, v in batch.items():
-        t = torch.from_numpy(np.ascontiguousarray(v))
-        if device.type == "cuda":
-            t = t.pin_memory().to(device, non_blocking=True)
-        out[k] = t
-    return out
 
 
 def prefetch_to_device(batches: Iterable[Dict[str, np.ndarray]],

@@ -1,5 +1,5 @@
-"""Two-stream ViLBERT encoder and the Lily task model, eval mode
-(counterpart of ``youtube_vln_tpu/models/vilbert.py``).
+"""Two-stream ViLBERT encoder and the Lily task model (counterpart of
+``youtube_vln_tpu/models/vilbert.py``), in eval and train mode.
 
 Candidates are flattened into the batch dimension and masks are additive
 key biases ``[B, S]`` f32 computed once, as in the JAX package.  Attribute
@@ -9,7 +9,9 @@ attention.self.query`` ...), so ``load_state_dict(strict=True)`` takes a
 reference-layout checkpoint once ``models/weights.py:normalize_state_dict``
 has unwrapped it.  The vision self-attention runs kernel B1 and every
 co-attention layer kernel B2 (``ops/attention.py``) when
-``cfg.use_attention_kernels`` is set.
+``cfg.use_attention_kernels`` is set; their gradients are B3 and B4.  In
+train mode ``Lily.forward`` takes a 64-bit ``seed`` and applies the JAX
+package's dropout at the same sites and rates (``models/layers.py``).
 """
 from __future__ import annotations
 
@@ -20,10 +22,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..config import LilyConfig
-from ..ops.attention import fused_bi_attention, use_kernel_for
-from .layers import (ACT2FN, AddNorm, Intermediate, LayerNorm, Linear,
-                     TransformerLayer, attention_core, ffn, merge_heads,
-                     split_heads)
+from ..ops.attention import (bi_attention_reference, fused_bi_attention,
+                             use_kernel_for)
+from .layers import (ACT2FN, AddNorm, DropoutRng, Intermediate, LayerNorm,
+                     Linear, TransformerLayer, attention_core, dropout, ffn,
+                     merge_heads, split_heads)
 
 
 def compute_dtype(cfg: LilyConfig) -> torch.dtype:
@@ -48,12 +51,13 @@ class TextEmbeddings(nn.Module):
         self.token_type_embeddings = nn.Embedding(cfg.type_vocab_size, h,
                                                   device=device)
         self.LayerNorm = LayerNorm(h, device=device)
+        self.dropout_rate = cfg.hidden_dropout_prob
 
-    def forward(self, input_ids, token_type_ids, dtype):
+    def forward(self, input_ids, token_type_ids, dtype, rng=None):
         pos = torch.arange(input_ids.shape[1], device=input_ids.device)
         emb = (self.word_embeddings(input_ids) + self.position_embeddings(pos)
                + self.token_type_embeddings(token_type_ids))
-        return self.LayerNorm(emb.to(dtype))
+        return dropout(self.LayerNorm(emb.to(dtype)), self.dropout_rate, rng)
 
 
 class VisionEmbeddings(nn.Module):
@@ -69,15 +73,17 @@ class VisionEmbeddings(nn.Module):
         self.image_next_orientation_embeddings = Linear(2, h, device=device)
         self.image_sequence_embeddings = nn.Embedding(32, h, device=device)
         self.LayerNorm = LayerNorm(h, device=device)
+        # the JAX package uses the text rate here (vilbert.py:150)
+        self.dropout_rate = cfg.hidden_dropout_prob
 
-    def forward(self, feats, locs, dtype):
+    def forward(self, feats, locs, dtype, rng=None):
         feats, locs = feats.to(dtype), locs.to(dtype)
         emb = (self.image_embeddings(feats)
                + self.image_location_embeddings(locs[..., :5])
                + self.image_orientation_embeddings(locs[..., 5:9])
                + self.image_next_orientation_embeddings(locs[..., 9:11])
                + self.image_sequence_embeddings(locs[..., 11].long()).to(dtype))
-        return self.LayerNorm(emb)
+        return dropout(self.LayerNorm(emb), self.dropout_rate, rng)
 
 
 # --------------------------------------------------------------------------- #
@@ -99,24 +105,32 @@ class BiAttention(nn.Module):
                            ("value2", cfg.hidden_size)):
             setattr(self, name, Linear(d_in, bi, device=device))
 
-    def forward(self, v_x, v_bias, t_x, t_bias):
+    def forward(self, v_x, v_bias, t_x, t_bias, rng=None):
         """Returns (text-side context [B, S_t, bi], vision-side context
-        [B, S_v, bi])."""
-        heads = self.cfg.bi_num_attention_heads
+        [B, S_v, bi]).  Dropout rates (train mode): text -> vision
+        ``v_attention_probs_dropout_prob``, vision -> text
+        ``attention_probs_dropout_prob`` (JAX vilbert.py:180-181, 186-192)."""
+        cfg = self.cfg
+        heads = cfg.bi_num_attention_heads
         q1 = split_heads(self.query1(v_x), heads)
         k1 = split_heads(self.key1(v_x), heads)
         v1 = split_heads(self.value1(v_x), heads)
         q2 = split_heads(self.query2(t_x), heads)
         k2 = split_heads(self.key2(t_x), heads)
         v2 = split_heads(self.value2(t_x), heads)
-        if (self.cfg.use_attention_kernels
-                and use_kernel_for(q2.shape[2], k1.shape[2], q1.shape[3])):
-            # both directions in ONE kernel launch
-            ctx1, ctx2 = fused_bi_attention(q1, k1, v1, q2, k2, v2,
-                                            v_bias, t_bias)
+        rate1, rate2 = ((0.0, 0.0) if rng is None else
+                        (cfg.v_attention_probs_dropout_prob,
+                         cfg.attention_probs_dropout_prob))
+        if use_kernel_for(q2.shape[2], k1.shape[2], q1.shape[3]):
+            # both directions in ONE kernel launch (or its plain version)
+            seed = 0 if rng is None else rng.kernel_seed()
+            attend = (fused_bi_attention if cfg.use_attention_kernels
+                      else bi_attention_reference)
+            ctx1, ctx2 = attend(q1, k1, v1, q2, k2, v2, v_bias, t_bias,
+                                rate1=rate1, rate2=rate2, seed=seed)
         else:
-            ctx1 = attention_core(q2, k1, v1, v_bias)   # text -> vision
-            ctx2 = attention_core(q1, k2, v2, t_bias)   # vision -> text
+            ctx1 = attention_core(q2, k1, v1, v_bias, rate1, rng)  # text -> vision
+            ctx2 = attention_core(q1, k2, v2, t_bias, rate2, rng)  # vision -> text
         return merge_heads(ctx1), merge_heads(ctx2)
 
 
@@ -130,10 +144,13 @@ class BiOutput(nn.Module):
         self.LayerNorm1 = LayerNorm(cfg.v_hidden_size, device=device)
         self.dense2 = Linear(cfg.bi_hidden_size, cfg.hidden_size, device=device)
         self.LayerNorm2 = LayerNorm(cfg.hidden_size, device=device)
+        self.rates = (cfg.v_hidden_dropout_prob, cfg.hidden_dropout_prob)
 
-    def forward(self, ctx_v, v_x, ctx_t, t_x):
-        return (self.LayerNorm1(self.dense1(ctx_v) + v_x),
-                self.LayerNorm2(self.dense2(ctx_t) + t_x))
+    def forward(self, ctx_v, v_x, ctx_t, t_x, rng=None):
+        return (self.LayerNorm1(dropout(self.dense1(ctx_v), self.rates[0], rng)
+                                + v_x),
+                self.LayerNorm2(dropout(self.dense2(ctx_t), self.rates[1], rng)
+                                + t_x))
 
 
 class ConnectionLayer(nn.Module):
@@ -147,18 +164,18 @@ class ConnectionLayer(nn.Module):
                                            cfg.v_intermediate_size,
                                            cfg.v_hidden_act, device=device)
         self.v_output = AddNorm(cfg.v_intermediate_size, cfg.v_hidden_size,
-                                device=device)
+                                cfg.v_hidden_dropout_prob, device=device)
         self.t_intermediate = Intermediate(cfg.hidden_size,
                                            cfg.intermediate_size,
                                            cfg.hidden_act, device=device)
         self.t_output = AddNorm(cfg.intermediate_size, cfg.hidden_size,
-                                device=device)
+                                cfg.hidden_dropout_prob, device=device)
 
-    def forward(self, v_x, v_bias, t_x, t_bias):
-        ctx_t, ctx_v = self.biattention(v_x, v_bias, t_x, t_bias)
-        v_att, t_att = self.biOutput(ctx_v, v_x, ctx_t, t_x)
-        return (ffn(v_att, self.v_intermediate, self.v_output),
-                ffn(t_att, self.t_intermediate, self.t_output))
+    def forward(self, v_x, v_bias, t_x, t_bias, rng=None):
+        ctx_t, ctx_v = self.biattention(v_x, v_bias, t_x, t_bias, rng)
+        v_att, t_att = self.biOutput(ctx_v, v_x, ctx_t, t_x, rng)
+        return (ffn(v_att, self.v_intermediate, self.v_output, rng),
+                ffn(t_att, self.t_intermediate, self.t_output, rng))
 
 
 # --------------------------------------------------------------------------- #
@@ -175,33 +192,35 @@ class Encoder(nn.Module):
         self.layer = nn.ModuleList(
             TransformerLayer(cfg.hidden_size, cfg.intermediate_size,
                              cfg.num_attention_heads, cfg.hidden_act, cfg,
-                             device=device)
+                             cfg.attention_probs_dropout_prob,
+                             cfg.hidden_dropout_prob, device=device)
             for _ in range(cfg.num_hidden_layers))
         self.v_layer = nn.ModuleList(
             TransformerLayer(cfg.v_hidden_size, cfg.v_intermediate_size,
                              cfg.v_num_attention_heads, cfg.v_hidden_act, cfg,
-                             device=device)
+                             cfg.v_attention_probs_dropout_prob,
+                             cfg.v_hidden_dropout_prob, device=device)
             for _ in range(cfg.v_num_hidden_layers))
         self.c_layer = nn.ModuleList(
             ConnectionLayer(cfg, device=device)
             for _ in range(len(cfg.v_biattention_id)))
 
-    def forward(self, t_x, v_x, t_bias, v_bias):
+    def forward(self, t_x, v_x, t_bias, v_bias, rng=None):
         cfg = self.cfg
         v_start, t_start = 0, 0
         for count, (v_end, t_end) in enumerate(
                 zip(cfg.v_biattention_id, cfg.t_biattention_id)):
             # frozen prefixes (the JAX package's stop_gradient)
             for idx in range(v_start, min(cfg.fixed_v_layer, v_end)):
-                v_x = self.v_layer[idx](v_x, v_bias).detach()
+                v_x = self.v_layer[idx](v_x, v_bias, rng).detach()
                 v_start = cfg.fixed_v_layer
             for idx in range(v_start, v_end):
-                v_x = self.v_layer[idx](v_x, v_bias)
+                v_x = self.v_layer[idx](v_x, v_bias, rng)
             for idx in range(t_start, min(cfg.fixed_t_layer, t_end)):
-                t_x = self.layer[idx](t_x, t_bias).detach()
+                t_x = self.layer[idx](t_x, t_bias, rng).detach()
                 t_start = cfg.fixed_t_layer
             for idx in range(t_start, t_end):
-                t_x = self.layer[idx](t_x, t_bias)
+                t_x = self.layer[idx](t_x, t_bias, rng)
 
             if count == 0 and cfg.in_batch_pairs:
                 # batch^2 expansion: every text paired with every image
@@ -216,13 +235,13 @@ class Encoder(nn.Module):
                 t_bias = t_bias.expand(n, -1)
 
             if cfg.with_coattention:
-                v_x, t_x = self.c_layer[count](v_x, v_bias, t_x, t_bias)
+                v_x, t_x = self.c_layer[count](v_x, v_bias, t_x, t_bias, rng)
             v_start, t_start = v_end, t_end
 
         for idx in range(v_start, cfg.v_num_hidden_layers):
-            v_x = self.v_layer[idx](v_x, v_bias)
+            v_x = self.v_layer[idx](v_x, v_bias, rng)
         for idx in range(t_start, cfg.num_hidden_layers):
-            t_x = self.layer[idx](t_x, t_bias)
+            t_x = self.layer[idx](t_x, t_bias, rng)
         return t_x, v_x
 
 
@@ -316,7 +335,7 @@ class BertModel(nn.Module):
 
     def forward(self, instr_tokens, image_features, image_locations,
                 token_type_ids=None, attention_mask=None,
-                image_attention_mask=None):
+                image_attention_mask=None, rng=None):
         dtype = compute_dtype(self.cfg)
         if attention_mask is None:
             attention_mask = torch.ones_like(instr_tokens)
@@ -325,21 +344,24 @@ class BertModel(nn.Module):
         if image_attention_mask is None:
             image_attention_mask = torch.ones(image_features.shape[:2],
                                               device=image_features.device)
-        t_x = self.embeddings(instr_tokens.long(), token_type_ids.long(), dtype)
-        v_x = self.v_embeddings(image_features, image_locations, dtype)
+        t_x = self.embeddings(instr_tokens.long(), token_type_ids.long(), dtype,
+                              rng)
+        v_x = self.v_embeddings(image_features, image_locations, dtype, rng)
         seq_t, seq_v = self.encoder(t_x, v_x, key_bias(attention_mask),
-                                    key_bias(image_attention_mask))
+                                    key_bias(image_attention_mask), rng)
         return seq_t, seq_v, self.t_pooler(seq_t), self.v_pooler(seq_v)
 
 
 class Lily(nn.Module):
-    """Reference Lily (lily.py:23-129), eval mode: ``forward`` returns float32
-    outputs keyed by the enabled tasks, like ``lily_forward``:
+    """Reference Lily (lily.py:23-129): ``forward`` returns float32 outputs
+    keyed by the enabled tasks, like ``lily_forward``:
       ranking [N, 1]   vision [N, S_v, v_target]
       traj    [N, 1]   language [N, S_t, vocab]
     ``language_target_idx`` / ``vision_target_idx`` ([N, M]) restrict the
-    masked-prediction heads to those rows.  The weights are uninitialised
-    until ``init_weights`` or ``load_state_dict``."""
+    masked-prediction heads to those rows.  In train mode (``.train()``)
+    dropout is on and ``seed``, the forward's 64-bit dropout seed, is
+    required; eval mode ignores it.  The weights are uninitialised until
+    ``init_weights`` or ``load_state_dict``."""
 
     def __init__(self, cfg: LilyConfig, device=None):
         super().__init__()
@@ -374,15 +396,18 @@ class Lily(nn.Module):
     def forward(self, instr_tokens, image_features, image_locations,
                 token_type_ids=None, attention_mask=None,
                 image_attention_mask=None, language_target_idx=None,
-                vision_target_idx=None) -> Dict[str, torch.Tensor]:
+                vision_target_idx=None, seed: Optional[int] = None
+                ) -> Dict[str, torch.Tensor]:
+        rng = None
         if self.training:
-            raise NotImplementedError(
-                "the port runs eval mode only (dropout arrives with the "
-                "training slice); call .eval() first")
+            if seed is None:
+                raise ValueError("train mode needs a dropout seed: pass "
+                                 "seed=, or call .eval()")
+            rng = DropoutRng(seed, instr_tokens.device)
         cfg = self.cfg
         seq_t, seq_v, pooled_t, pooled_v = self.bert(
             instr_tokens, image_features, image_locations, token_type_ids,
-            attention_mask, image_attention_mask)
+            attention_mask, image_attention_mask, rng)
 
         outputs: Dict[str, torch.Tensor] = {}
         if cfg.masked_language:
@@ -392,7 +417,9 @@ class Lily(nn.Module):
             hv = _take_rows(seq_v, vision_target_idx)
             outputs["vision"] = self.cls.imagePredictions(hv).float()
         if cfg.ranking or cfg.traj_judge:
-            pooled = fuse_pooled(cfg, pooled_t, pooled_v)
+            # Lily's own dropout on the fused pool (lily.py:51,100)
+            pooled = dropout(fuse_pooled(cfg, pooled_t, pooled_v),
+                             cfg.fusion_dropout_prob, rng)
             if cfg.ranking:
                 outputs["ranking"] = self.vil_logit(pooled).float()
             if cfg.traj_judge:

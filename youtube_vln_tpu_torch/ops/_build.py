@@ -2,8 +2,9 @@
 
 Each source under ``csrc/`` becomes one shared library with a plain C
 interface in ``build/kernels/`` at the root of the checkout (listed in
-``.gitignore``), named by a hash of its source so an edited kernel is
-rebuilt.  Nothing is built at import time: ``load`` builds on first use,
+``.gitignore``), named by a hash of its source, of every header under
+``csrc/`` and of the compiler flags, so an edited kernel or shared header
+is rebuilt.  Nothing is built at import time: ``load`` builds on first use,
 and ``build_all`` starts one ``nvcc`` per source, all at once.
 """
 from __future__ import annotations
@@ -18,7 +19,7 @@ from typing import Dict, List, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("attention_fwd",)
+SOURCES = ("attention_fwd", "attention_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -37,9 +38,14 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}_{digest}.so"
+    """``build/kernels/lib<name>_<hash>.so``; the hash covers the source,
+    every ``*.cuh`` under ``csrc/`` (any of them may be included) and the
+    flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:12]}.so"
 
 
 def _start(name: str, verbose: bool) -> Tuple[Path, Path, subprocess.Popen]:

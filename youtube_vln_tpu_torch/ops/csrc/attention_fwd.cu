@@ -33,6 +33,16 @@
 //   * scores, softmax statistics and the output accumulator stay in f32.
 // Not yet used: wgmma, TMA and a pipelined K/V ring (later work).
 //
+// Training.  With dropout enabled the Philox mask of philox.cuh (a pure
+// function of seed, stream b*H + h, query row, key and direction, so the
+// backward kernels of attention_bwd.cu replay it tile by tile) multiplies
+// the unnormalised exp(s - m) that meets V, scaled by 1 / (1 - rate); the
+// running sum l sums the probabilities BEFORE dropout, because the TPU
+// kernel normalises first and drops second (attention.py:54-61).  When
+// the problem carries an lse pointer the kernel writes the f32 row
+// statistic LSE = m + log(l) per query row ([B*H, s_q]) for the backward.
+// With dropout off and no lse pointer (eval) the arithmetic is unchanged.
+//
 // Edges.  Keys past S_kv are excluded with -inf (they never see the
 // -10000 bias); every key tile holds at least one real key, so the running
 // max stays finite.  A row whose real keys all carry -10000 therefore
@@ -50,6 +60,8 @@
 
 #include <type_traits>
 
+#include "philox.cuh"
+
 using namespace nvcuda;
 
 // One attention problem (outside the unnamed namespace: the exported C
@@ -62,11 +74,13 @@ struct Problem {
   const void* v;
   const float* bias;  // [B, s_kv] additive key bias
   void* o;            // [B, H, s_q, D], strided like q
+  float* lse;         // [B*H, s_q] row log-sum-exp, or null
   long long q_sb, q_sh, q_ss;
   long long k_sb, k_sh, k_ss;
   long long v_sb, v_sh, v_ss;
   long long o_sb, o_sh, o_ss;
   int s_q, s_kv;
+  vln_philox::Dropout dropout;
 };
 
 namespace {
@@ -255,10 +269,15 @@ __device__ void attend_tile(const Problem& p, int heads, int bh, int tile,
       for (int j = 0; j < BN / 32; ++j) {
         const int c = lane + 32 * j;
         const float e = expf(x[j] - m_new);  // 0 for keys past s_kv
+        float pe = e;                        // the share that meets V
+        if (p.dropout.enabled)
+          pe = vln_philox::keep(p.dropout, bh, q0 + row, k0 + c)
+                   ? e * p.dropout.keep_scale
+                   : 0.0f;
         if constexpr (Lay::kBf16)
-          sP[row * Lay::PP + c] = __float2bfloat16(e);
+          sP[row * Lay::PP + c] = __float2bfloat16(pe);
         else
-          sS[row * Lay::SP + c] = e;
+          sS[row * Lay::SP + c] = pe;
         sum += e;
       }
       sum = warp_sum(sum);
@@ -285,6 +304,9 @@ __device__ void attend_tile(const Problem& p, int heads, int bh, int tile,
     if (q0 + row < p.s_q)
       o[(q0 + row) * p.o_ss + c] = from_float<T>(sO[row * Lay::OP + c] / sL[row]);
   }
+  if (p.lse != nullptr && lane < 16 && q0 + r0 + lane < p.s_q)
+    p.lse[(long long)bh * p.s_q + q0 + r0 + lane] =
+        sM[r0 + lane] + logf(sL[r0 + lane]);
 }
 
 template <typename T, int D>
@@ -317,7 +339,8 @@ cudaError_t launch(const Problem& p0, const Problem& p1, int batch, int heads,
 
 }  // namespace
 
-// Runs problem p0 and, when p1->s_q > 0, problem p1 in one launch.
+// Runs problem p0 and, when p1->s_q > 0, problem p1 in one launch (B2:
+// p0 is text -> vision, dropout direction 0; p1 vision -> text, 1).
 // is_bf16 selects bf16 (1) or f32 (0) for q/k/v/out; head_dim is 64 or 128.
 extern "C" int vln_attention_fwd(const Problem* p0, const Problem* p1,
                                  int batch, int heads, int head_dim,
