@@ -29,17 +29,39 @@ Phases, each fatal on failure:
   7. the train step's gradients on the kernel path against the plain path
      at batch 1 x 6 (f32 with dropout off and on, and bf16 against f32);
   8. one traced train step: device time by kind of kernel, idle share;
-  9. a ``kernels`` JSON line: per kernel its launches on the eval and the
-     train path, error, time, bound, plain time and a library call's time
-     at the train shapes (B1/B2 also at the eval shapes).
+  9. B5/B6, the fused dropout + residual + LayerNorm epilogue, against
+     their plain versions at the pretraining shape (45,248 x 1024), at
+     5,760 x 768 and at an odd row count, bf16 and f32, dropout 0 and 0.1:
+     out, dh, dres, dw and db (same Philox masks);
+ 10. the pretraining path: a YTb fixture at flagship geometry (16 videos
+     x 24 frames x 101 boxes) written by the port's ``build_ytb_fixture``,
+     the port's ``YTbDataset`` (MLM + MVM masking, sparse targets,
+     candidate dedup) and ``Loader`` (batch 8, one process) feeding
+     ``build_train_step`` for the four MRT tasks at flagship width and
+     depth in bf16 (AdamWRef, lr 2e-5): 2 warm-up steps, then 5 timed
+     steps each with ``use_epilogue_kernels`` on, off, off, on, on
+     device-resident batches; 24 launches each of B5/B6 and 6 of B1-B4 per
+     micro-step with the knob on, none of B5/B6 with it off; finite
+     losses, moved parameters; then 3 steps fed straight from the Loader;
+ 11. that step's gradients at batch 1 x 7 on the kernel path against the
+     plain path (every kernel site on its plain version, same masks): f32
+     with dropout off and on, and bf16 against f32;
+ 12. one traced pretraining step with the epilogue knob on and one with it
+     off: device time by kind, B5/B6 a kind of their own, idle share;
+ 13. a ``kernels`` JSON line: per kernel its launches on the eval, the
+     fine-tuning and the pretraining path, error, time, bound, plain time
+     and a library call's time at the train shapes (B1/B2 also at the eval
+     shapes, B5/B6 at the pretraining shape).
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or without the package beside it, the script exits non-zero.
 """
 import argparse
+import contextlib
 import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -51,9 +73,17 @@ N_REQUESTS = 4                     # step-dedup requests on the eval path
 TRAIN_B, TRAIN_NC, HEADS = 16, 6, 8
 WARMUP_STEPS, TIMED_STEPS = 2, 5
 RATE = 0.1                         # attention dropout of lily_base_config
+# the pretraining recipe (README: pretrain.py --pre_dataset ytb
+# --masked_vision --masked_language --ranking --traj_judge --batch_size 8
+# --learning_rate 2e-5): 8 instructions x (1 + 3 x 2 negatives) candidates
+PRE_B, PRE_NC = 8, 7
+PRE_VIDEOS, PRE_FRAMES = 16, 24    # fixture: ~0.57 GB of features
+PRE_TIMED = 5
 # published H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores
-# (the main path's type) and device memory
+# (the main path's type), f32 outside the tensor cores (the epilogue's
+# arithmetic) and device memory
 PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 # kernel vs plain version: max abs error over max(1, max |plain|).  bf16:
 # 1e-2, about two and a half bf16 ulps (8 significant bits) at the largest
@@ -119,11 +149,32 @@ def check(name, got, want, rel_tol, floor=1.0) -> float:
     return err
 
 
-def bound_ms(flops, nbytes):
-    """The least time for the work in bf16: operations over the tensor-core
-    peak or bytes over the memory rate, whichever is larger."""
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+def bound_ms(flops, nbytes, peak=PEAK_BF16_FLOPS):
+    """The least time for the work: operations over the peak rate of their
+    type (bf16 tensor cores unless given) or bytes over the memory rate,
+    whichever is larger."""
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def reset_counts() -> None:
+    """Zero the launch counts of every kernel (B1-B6)."""
+    from youtube_vln_tpu_torch.ops import attention as A
+    from youtube_vln_tpu_torch.ops import epilogue as E
+    A.reset_launch_counts()
+    E.reset_launch_counts()
+
+
+def counts() -> dict:
+    """The launch counts of every kernel since the last reset."""
+    from youtube_vln_tpu_torch.ops import attention as A
+    from youtube_vln_tpu_torch.ops import epilogue as E
+    return {**A.LAUNCHES, **E.LAUNCHES}
+
+
+def no_epilogue_launches(launches, what) -> None:
+    if launches["epilogue_fwd"] or launches["epilogue_bwd"]:
+        fail(f"{what}: B5/B6 launched with use_epilogue_kernels off: {launches}")
 
 
 def nbytes(*tensors) -> int:
@@ -281,12 +332,13 @@ def main_path(seed):
     # warm-up: library handles, kernel load, allocator
     eval_epoch(model, cfg, [requests[0], dense], device="cuda")
 
-    A.reset_launch_counts()
+    reset_counts()
     t0 = time.perf_counter()
     scores = eval_epoch(model, cfg, requests, device="cuda")
     t_dedup = time.perf_counter() - t0
     scores += eval_epoch(model, cfg, [dense], device="cuda")
-    launches = dict(A.LAUNCHES)
+    launches = counts()
+    no_epilogue_launches(launches, "eval path")
     n_run = N_REQUESTS + 1
     per_layer = {"attention_fwd": cfg.v_num_hidden_layers,
                  "bi_attention_fwd": len(cfg.v_biattention_id)}
@@ -388,11 +440,17 @@ def device_breakdown(run, name):
         run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    # user annotations (the optimizer's step range) carry the device time
+    # of the kernels inside them: counting both would count those twice
     kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
+               if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
     groups = {"attention kernels B1-B4": ("attention_fwd_kernel",
                                           "attention_bwd_kernel",
                                           "delta_kernel"),
+              "epilogue kernels B5/B6": ("epilogue_fwd_kernel",
+                                         "epilogue_bwd_kernel",
+                                         "column_sum_kernel"),
               "gemm (cuBLAS)": ("gemm", "nvjet", "xmma", "cutlass", "sm90_"),
               "copies": ("memcpy", "memset")}
     by_kind = dict.fromkeys(list(groups) + ["elementwise and other"], 0.0)
@@ -435,11 +493,13 @@ def sdpa_backward(problems, rate):
     def run():
         return torch.autograd.grad(outs, leaves, douts, retain_graph=True)
     ms = cuda_ms(run)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         run()
         torch.cuda.synchronize()
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    busiest = max(kernels, key=lambda e: e.self_device_time_total).key[:80]
+    # the kernel's name only labels the row; its time comes from the events
+    busiest = (max(kernels, key=lambda e: e.self_device_time_total).key[:80]
+               if kernels else "kernel name not traced")
     return ms, busiest
 
 
@@ -658,15 +718,14 @@ def run_steps(step, batches, n, next_seed):
     """(ms per step, peak device memory, launch counts, metrics) of ``n``
     train steps, the counts and the peak reset just before them."""
     import torch
-    from youtube_vln_tpu_torch.ops import attention as A
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    A.reset_launch_counts()
+    reset_counts()
     t0 = time.perf_counter()
     metrics = [step(batches[i % len(batches)], next_seed()) for i in range(n)]
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3 / n
-    return ms, torch.cuda.max_memory_allocated(), dict(A.LAUNCHES), metrics
+    return ms, torch.cuda.max_memory_allocated(), counts(), metrics
 
 
 def check_launches(cfg, launches, micro, what):
@@ -723,6 +782,7 @@ def train_path(seed):
     metrics = [step(batches[i % 2], next_seed()) for i in range(WARMUP_STEPS)]
     ms, peak, launches, timed = run_steps(step, batches, TIMED_STEPS, next_seed)
     check_launches(cfg, launches, TIMED_STEPS, "train path")
+    no_epilogue_launches(launches, "train path")
     losses = [float(m["loss/train"]) for m in metrics + timed]
     print(f"train losses: {losses}")
     if not np.isfinite(losses).all():
@@ -832,6 +892,375 @@ def path_gradient_check(model, cfg, args, batch):
              "twice the plain path's")
 
 
+def epilogue_kernel_checks(seed):
+    """Phase 9: B5/B6 against their plain versions (same Philox masks);
+    returns the numbers of the kernels line at the pretraining shape."""
+    import torch
+    import torch.nn.functional as F
+    from youtube_vln_tpu_torch.ops import epilogue as E
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 2)
+    bf16, f32 = torch.bfloat16, torch.float32
+    drop_seed = 0xE91 + seed
+    n_main = PRE_B * PRE_NC * L * BOXES            # 45,248 vision rows
+    rows = {}
+    cases = [(dtype, n, d, rate) for n, d in ((n_main, 1024), (5760, 768), (1001, 1024))
+             for dtype in (bf16, f32) for rate in (RATE, 0.0)]
+    for dtype, n, d, rate in cases:
+        tag = f"{dtype} {n}x{d} rate {rate}"
+        h, res, do = (torch.randn(n, d, generator=gen, device="cuda").to(dtype)
+                      for _ in range(3))
+        w = 1.0 + 0.1 * torch.randn(d, generator=gen, device="cuda")
+        b = 0.1 * torch.randn(d, generator=gen, device="cuda")
+        # bf16 by the TOL rule; f32 1e-4 x max |plain|
+        tol = TOL["bfloat16"] if dtype == bf16 else 1e-4
+        floor = 1.0 if dtype == bf16 else 0.0
+        out, ops = E._epilogue_fwd(h, res, w, b, rate, drop_seed)
+        err_f = check(f"B5 epilogue_fwd {tag}", out,
+                      E.epilogue_reference(h, res, w, b, rate, drop_seed), tol, floor)
+        got = E._epilogue_bwd(*ops, do, rate, drop_seed)
+        want = E.epilogue_bwd_reference(h, res, w, do, rate, drop_seed)
+        err_b = max(check(f"B6 epilogue_bwd d{name} {tag}", g, r, tol, 0.0)
+                    for name, g, r in zip(("h", "res", "w", "b"), got, want))
+        if rate > 0.0:
+            keep = E._keep(h, rate, drop_seed)
+            if not bool((got[0][~keep] == 0).all()):
+                fail(f"B6 {tag}: dh is not 0 where B5 dropped")
+        if (dtype, rate) != (bf16, RATE) or n != n_main:
+            continue
+        # the main path's shape: time B5/B6, the plain versions and the
+        # library's LayerNorm (no dropout: F.layer_norm of the summed input)
+        y = h + res
+        wl, bl = w.to(dtype), b.to(dtype)
+        fwd_bound = bound_ms(10 * n * d, nbytes(h, res, out, w, b), PEAK_F32_FLOPS)
+        bwd_bound = bound_ms(20 * n * d, nbytes(h, res, do, w, *got), PEAK_F32_FLOPS)
+        leaves = [x.detach().clone().requires_grad_() for x in (y, wl, bl)]
+        lib_out = F.layer_norm(leaves[0], (d,), leaves[1], leaves[2], 1e-12)
+        rows["epilogue_fwd"] = dict(
+            name="epilogue_fwd", route="cuda",
+            source="youtube_vln_tpu_torch/ops/csrc/epilogue.cu",
+            replaces="youtube_vln_tpu/ops/epilogue.py:43", max_abs_err=err_f,
+            ms=cuda_ms(lambda: E._epilogue_fwd(h, res, w, b, rate, drop_seed)),
+            plain_ms=cuda_ms(lambda: E.epilogue_reference(h, res, w, b, rate,
+                                                          drop_seed), iters=5),
+            bound_ms=fwd_bound[0], bound_by=fwd_bound[1],
+            library_ms=cuda_ms(lambda: F.layer_norm(y, (d,), wl, bl, 1e-12)),
+            library="F.layer_norm of h + res (LN only, no dropout), bf16 weights",
+            shape=f"[{n}, {d}] bf16, dropout {rate}")
+        rows["epilogue_bwd"] = dict(
+            name="epilogue_bwd", route="cuda",
+            source="youtube_vln_tpu_torch/ops/csrc/epilogue.cu",
+            replaces="youtube_vln_tpu/ops/epilogue.py:61", max_abs_err=err_b,
+            ms=cuda_ms(lambda: E._epilogue_bwd(*ops, do, rate, drop_seed)),
+            plain_ms=cuda_ms(lambda: E.epilogue_bwd_reference(h, res, w, do, rate,
+                                                              drop_seed), iters=5),
+            bound_ms=bwd_bound[0], bound_by=bwd_bound[1],
+            library_ms=cuda_ms(lambda: torch.autograd.grad(lib_out, leaves, do,
+                                                           retain_graph=True)),
+            library="autograd backward of that F.layer_norm (LN only, no dropout)",
+            shape=f"[{n}, {d}] bf16, dropout {rate}")
+        del leaves, lib_out, y
+    torch.cuda.empty_cache()
+    return rows
+
+
+@contextlib.contextmanager
+def plain_launchers():
+    """Every kernel site on its kernel's plain version: the launchers of
+    B1-B6 in ops/attention.py and ops/epilogue.py replaced, for CUDA
+    tensors, by the plain versions (same Philox masks).  Nothing launches,
+    so the launch counts stay 0."""
+    import torch
+    from youtube_vln_tpu_torch.ops import attention as A
+    from youtube_vln_tpu_torch.ops import epilogue as E
+
+    def bias_or_zeros(bias, b, s, device):
+        return torch.zeros(b, s, device=device) if bias is None else bias
+
+    def attention_fwd(q, k, v, bias, rate, seed, want_lse):
+        bias = bias_or_zeros(bias, q.shape[0], k.shape[2], q.device)
+        lse = A.attention_lse_reference(q, k, bias) if want_lse else None
+        return A.attention_reference(q, k, v, bias, rate, seed), lse, (q, k, v, bias)
+
+    def attention_bwd(q, k, v, bias, o, do, lse, rate, seed):
+        return A.attention_bwd_reference(q, k, v, bias, do, rate, seed)
+
+    def bi_attention_fwd(q1, k1, v1, q2, k2, v2, v_bias, t_bias, rate1, rate2,
+                         seed, want_lse):
+        vb = bias_or_zeros(v_bias, q1.shape[0], k1.shape[2], q1.device)
+        tb = bias_or_zeros(t_bias, q1.shape[0], k2.shape[2], q1.device)
+        ctx1, ctx2 = A.bi_attention_reference(q1, k1, v1, q2, k2, v2, vb, tb,
+                                              rate1, rate2, seed)
+        lse1, lse2 = ((A.attention_lse_reference(q2, k1, vb),
+                       A.attention_lse_reference(q1, k2, tb)) if want_lse
+                      else (None, None))
+        return ctx1, ctx2, lse1, lse2, (q1, k1, v1, q2, k2, v2, vb, tb)
+
+    def bi_attention_bwd(q1, k1, v1, q2, k2, v2, vb, tb, ctx1, ctx2, lse1, lse2,
+                         do1, do2, rate1, rate2, seed):
+        return A.bi_attention_bwd_reference(q1, k1, v1, q2, k2, v2, vb, tb, do1,
+                                            do2, rate1, rate2, seed)
+
+    def epilogue_fwd(h, res, weight, bias, rate, seed):
+        d = h.shape[-1]
+        h, res = h.reshape(-1, d), res.reshape(-1, d)
+        return E.epilogue_reference(h, res, weight, bias, rate, seed), (h, res, weight)
+
+    def epilogue_bwd(h, res, weight, do, rate, seed):
+        return E.epilogue_bwd_reference(h, res, weight, do.reshape(h.shape), rate, seed)
+
+    patched = [(A, "_attention_fwd", attention_fwd), (A, "_attention_bwd", attention_bwd),
+               (A, "_bi_attention_fwd", bi_attention_fwd),
+               (A, "_bi_attention_bwd", bi_attention_bwd),
+               (E, "_epilogue_fwd", epilogue_fwd), (E, "_epilogue_bwd", epilogue_bwd)]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patched]
+    try:
+        for mod, name, fn in patched:
+            setattr(mod, name, fn)
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def check_pretrain_launches(cfg, launches, micro, what):
+    """Per micro-step: 6 launches each of B1-B4 and, with the epilogue knob
+    on, one of B5 and B6 at each vision-stream site (the self-attention and
+    feed-forward outputs of every vision layer, the vision side of every
+    co-attention output and of every connection feed-forward: 24)."""
+    check_launches(cfg, launches, micro, what)
+    per = 2 * cfg.v_num_hidden_layers + 2 * len(cfg.v_biattention_id)
+    if not cfg.use_epilogue_kernels:
+        per = 0
+    for name in ("epilogue_fwd", "epilogue_bwd"):
+        if launches[name] != per * micro:
+            fail(f"{what}: {name} launched {launches[name]} times, expected "
+                 f"{per} x {micro}")
+
+
+def pretrain_fixture(root, seed):
+    """The YTb fixture at flagship geometry (scripts/bench_e2e.py:62-67) and
+    the run configuration of the pretraining recipe."""
+    from youtube_vln_tpu_torch.config import RunConfig
+    from youtube_vln_tpu_torch.data import fixtures
+    flagship = dict(max_instruction_length=S_T, max_path_length=L,
+                    max_num_boxes=BOXES, min_path_length=4, min_captioned=2,
+                    max_captioned=7, sparse_vision_targets=True,
+                    dedup_candidates=True)
+    t0 = time.perf_counter()
+    paths = fixtures.build_ytb_fixture(root, n_videos=PRE_VIDEOS,
+                                       frames_per_video=PRE_FRAMES,
+                                       k_boxes=BOXES, seed=seed,
+                                       args_overrides=flagship)
+    build_s = time.perf_counter() - t0
+    args = RunConfig(pretrain=True, pre_dataset="ytb", ranking=True,
+                     traj_judge=True, masked_vision=True, masked_language=True,
+                     batch_size=PRE_B, learning_rate=2e-5, num_workers=0,
+                     num_negatives=2, skeleton_path=paths["skeleton_path"],
+                     seed=seed, **flagship)
+    args.validate()
+    store_bytes = Path(paths["store_path"]).stat().st_size
+    print(f"pretraining fixture: {PRE_VIDEOS} videos x {PRE_FRAMES} frames x "
+          f"{BOXES} boxes, store {store_bytes / 1e9:.3f} GB, built in {build_s:.1f} s")
+    return paths, args
+
+
+def pretrain_path(seed):
+    """Phases 10-12: the pretraining step fed by the port's YTbDataset and
+    Loader; returns the launch counts of the first 5 timed steps with the
+    epilogue knob on."""
+    import numpy as np
+    import torch
+    from youtube_vln_tpu_torch import lily_base_config
+    from youtube_vln_tpu_torch.data import store
+    from youtube_vln_tpu_torch.data.datasets import YTbDataset
+    from youtube_vln_tpu_torch.data.features_reader import YTbFeaturesReader
+    from youtube_vln_tpu_torch.data.loader import Loader
+    from youtube_vln_tpu_torch.data.tokenizer import load_tokenizer
+    from youtube_vln_tpu_torch.device import to_device
+    from youtube_vln_tpu_torch.evaluation.beam_eval import prefetch_to_device
+    from youtube_vln_tpu_torch.models import Lily
+    from youtube_vln_tpu_torch.parallel.train_step import (build_train_step,
+                                                           create_train_state)
+
+    dev = torch.device("cuda")
+    with tempfile.TemporaryDirectory(prefix="ytb_fixture_") as root:
+        paths, args = pretrain_fixture(root, seed)
+        reader = YTbFeaturesReader(paths["store_path"])
+        native = store.get_native() is not None
+        print(f"store reader: {'native (native/libvlnstore.so, C path packers)' if native else 'numpy (no native library)'}")
+        ds = YTbDataset(args=args, caption_path=paths["caption_path"],
+                        tokenizer=load_tokenizer(paths["vocab_path"]),
+                        features_reader=reader, masked_vision=True,
+                        masked_language=True, training=True, seed=seed)
+        if ds.num_candidates() != PRE_NC:
+            fail(f"pretraining: {ds.num_candidates()} candidates, expected {PRE_NC}")
+        # one process: the batches below are few, and CUDA is already up
+        loader = Loader(ds, PRE_B, shuffle=True, seed=seed, num_workers=0,
+                        drop_last=True)
+        t0 = time.perf_counter()
+        host_batches = list(loader)
+        host_ms = (time.perf_counter() - t0) * 1e3 / len(host_batches)
+        batch_bytes = sum(v.nbytes for v in host_batches[0].values())
+        print(f"loader: {len(host_batches)} batches of {PRE_B} x {PRE_NC}, "
+              f"{host_ms:.1f} ms per batch on the host, {batch_bytes / 1e6:.1f} MB")
+
+        cfg = lily_base_config(ranking=True, traj_judge=True, masked_vision=True,
+                               masked_language=True, compute_dtype="bfloat16",
+                               use_epilogue_kernels=True)
+        model = Lily(cfg, device="cuda").init_weights(seed)
+        optimizer, _ = create_train_state(model, args, steps_per_epoch=1000)
+        step = build_train_step(model, cfg, args, optimizer, device="cuda")
+        batches = [to_device(b, dev) for b in host_batches[:2]]
+        seeds = torch.Generator().manual_seed(seed + 7)
+
+        def next_seed():
+            return int(torch.randint(0, 2 ** 63 - 1, (1,), generator=seeds))
+
+        print(f"pretrain model: lily_base_config, four tasks, bf16, AdamWRef lr "
+              f"{args.learning_rate}, batch {PRE_B} x {PRE_NC} x ({S_T} + {L * BOXES})")
+        before = [p.detach().clone() for p in model.parameters()]
+        warm = [step(batches[i % 2], next_seed()) for i in range(WARMUP_STEPS)]
+        runs = []
+        for knob in (True, False, False, True):
+            cfg.use_epilogue_kernels = knob
+            ms, peak, launches, timed = run_steps(step, batches, PRE_TIMED, next_seed)
+            check_pretrain_launches(cfg, launches, PRE_TIMED,
+                                    f"pretraining path, epilogue knob {'on' if knob else 'off'}")
+            runs.append((knob, ms, peak, launches, timed))
+        cfg.use_epilogue_kernels = True
+        losses = {k: [float(m[k]) for m in warm + [m for r in runs for m in r[4]]]
+                  for k in ("loss/train", "loss/language", "loss/vision",
+                            "loss/ranking", "loss/traj")}
+        if not all(np.isfinite(v).all() for v in losses.values()):
+            fail(f"pretraining path: non-finite loss {losses}")
+        moved = sum(int(not torch.equal(a, p.detach()))
+                    for a, p in zip(before, model.parameters()))
+        print(f"pretraining parameters moved: {moved} of {len(before)} tensors")
+        if moved == 0:
+            fail("pretraining path: no parameter moved")
+        del before
+
+        # three steps fed straight from the Loader (epochs 1 and 2): the
+        # host assembles the next batch while the device runs a step; every
+        # epoch is read to its end, so no producer is left mid-item
+        torch.cuda.synchronize()
+        wait_ms, fed, fed_ms, t0 = [], [], None, time.perf_counter()
+        for epoch in (1, 2):
+            loader.set_epoch(epoch)
+            it = prefetch_to_device(loader, dev)
+            while True:
+                t1 = time.perf_counter()
+                batch = next(it, None)
+                if batch is None:
+                    break
+                if len(fed) < 3:
+                    wait_ms.append((time.perf_counter() - t1) * 1e3)
+                    fed.append(step(batch, next_seed()))
+                    if len(fed) == 3:
+                        torch.cuda.synchronize()
+                        fed_ms = (time.perf_counter() - t0) * 1e3 / 3
+        if len(fed) != 3 or not all(np.isfinite(float(m["loss/train"])) for m in fed):
+            fail(f"pretraining path fed by the Loader: {len(fed)} steps, losses "
+                 f"{[float(m['loss/train']) for m in fed]}")
+
+        on = [r for r in runs if r[0]]
+        off = [r for r in runs if not r[0]]
+        flops = model_flops_per_traj(cfg, S_T, L * BOXES) * PRE_B * PRE_NC
+        print(json.dumps({
+            "pretrain_path": "YTbDataset -> Loader -> build_train_step, MLM + MVM "
+                             "+ ranking + traj_judge, bf16, flagship width and depth",
+            "store_reader": "native" if native else "numpy",
+            "steps_per_run": PRE_TIMED, "run_order": ["on", "off", "off", "on"],
+            "ms_per_step_knob_on": [r[1] for r in on],
+            "ms_per_step_knob_off": [r[1] for r in off],
+            "peak_memory_gib_knob_on": [r[2] / 2 ** 30 for r in on],
+            "peak_memory_gib_knob_off": [r[2] / 2 ** 30 for r in off],
+            "trajectories_per_s_knob_on": PRE_B * PRE_NC / statistics.mean(
+                r[1] for r in on) * 1e3,
+            "trajectories_per_s_knob_off": PRE_B * PRE_NC / statistics.mean(
+                r[1] for r in off) * 1e3,
+            "step_flops": flops, "step_bound_ms": flops / PEAK_BF16_FLOPS * 1e3,
+            "host_ms_per_batch": host_ms, "host_batch_bytes": batch_bytes,
+            "loader_fed_ms_per_step": fed_ms, "loader_wait_ms": wait_ms,
+            "losses": losses}))
+
+        for knob in (True, False):
+            cfg.use_epilogue_kernels = knob
+            print(json.dumps(device_breakdown(
+                lambda: step(batches[0], next_seed()),
+                f"traced_pretrain_step_knob_{'on' if knob else 'off'}")))
+        cfg.use_epilogue_kernels = True
+        pretrain_gradient_check(model, cfg, args,
+                                {k: v[:1] for k, v in host_batches[0].items()})
+        reader.close()
+    del model, optimizer, step, batches
+    torch.cuda.empty_cache()
+    return runs[0][3]
+
+
+def pretrain_gradient_check(model, cfg, args, batch):
+    """Phase 11: gradients of one pretraining step at batch 1 x 7 (every
+    vision epilogue site holds 7 x 808 x 1024 elements, so the sites
+    qualify) on the kernel path against the plain path."""
+    import torch
+    from youtube_vln_tpu_torch.device import to_device
+    from youtube_vln_tpu_torch.parallel.train_step import _task_config, loss_fn
+
+    batch = to_device(batch, torch.device("cuda"))
+    tasks = _task_config(args, True)
+    params = [p for p in model.parameters() if p.requires_grad]
+    drop_seed = 0xD50 + 3
+
+    def grads(kernels, dtype, dropout):
+        cfg.compute_dtype = dtype
+        model.train(dropout)
+        reset_counts()
+        try:
+            with contextlib.nullcontext() if kernels else plain_launchers():
+                loss = loss_fn(model, batch, tasks, drop_seed)[0]
+                g = torch.autograd.grad(loss, params, allow_unused=True)
+        finally:
+            cfg.compute_dtype = "bfloat16"
+        what = (f"pretraining gradient check ({'kernel' if kernels else 'plain'} "
+                f"path, {dtype}, dropout {'on' if dropout else 'off'})")
+        launches = counts()
+        if kernels:
+            # eval mode runs no epilogue site: it needs train mode and a rate
+            cfg.use_epilogue_kernels = dropout
+            try:
+                check_pretrain_launches(cfg, launches, 1, what)
+            finally:
+                cfg.use_epilogue_kernels = True
+        elif any(launches.values()):
+            fail(f"{what}: kernels launched: {launches}")
+        return [torch.zeros_like(p) if x is None else x.float()
+                for p, x in zip(params, g)]
+
+    def rel_l2(a, b):
+        num = sum(float(((x - y) ** 2).sum()) for x, y in zip(a, b))
+        den = sum(float((y ** 2).sum()) for y in b)
+        return (num / den) ** 0.5
+
+    for dropout in (False, True):
+        err = rel_l2(grads(True, "float32", dropout), grads(False, "float32", dropout))
+        print(f"check pretraining gradients, kernel vs plain path, f32, dropout "
+              f"{'on' if dropout else 'off'}: relative L2 {err:.3e} (tol 1e-3)")
+        if not err <= 1e-3:
+            fail("pretraining gradients: kernel and plain paths disagree")
+    for dropout in (False, True):
+        exact = grads(False, "float32", dropout)
+        k_err = rel_l2(grads(True, "bfloat16", dropout), exact)
+        p_err = rel_l2(grads(False, "bfloat16", dropout), exact)
+        print(f"check pretraining gradients in bf16 against f32, dropout "
+              f"{'on' if dropout else 'off'}: kernel path {k_err:.3e}, plain path "
+              f"{p_err:.3e} (tol 2 x plain)")
+        if not k_err <= 2 * p_err:
+            fail("pretraining gradients: the kernel path's bf16 error exceeds "
+                 "twice the plain path's")
+    model.train()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -867,13 +1296,18 @@ def main() -> int:
     launches_eval = main_path(args.seed)
     rows = train_kernel_checks(args.seed)
     launches_train = train_path(args.seed)
+    rows.update(epilogue_kernel_checks(args.seed))
+    launches_pretrain = pretrain_path(args.seed)
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     for name, row in rows.items():
         row["launches_eval"] = launches_eval[name]
         row["launches_train"] = launches_train[name]
-        row["launches"] = launches_eval[name] + launches_train[name]
+        row["launches_pretrain"] = launches_pretrain[name]
+        row["launches"] = (launches_eval[name] + launches_train[name]
+                           + launches_pretrain[name])
         if name in eval_rows:
             row["eval_shape"] = {k: eval_rows[name][k] for k in keys}
+    print(smi.stdout.strip().splitlines()[0])
     print(json.dumps({"kernels": list(rows.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,6 @@
-"""The port stands alone: it never imports JAX or the JAX package, and its
-entry points refuse to run on a machine without CUDA unless the caller asks
-for the CPU."""
+"""The port stands alone: it never imports JAX, the JAX package or
+networkx (absent on the card machine), and its entry points refuse to run
+on a machine without CUDA unless the caller asks for the CPU."""
 import os
 import re
 import shutil
@@ -18,11 +18,13 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for name in names:
     importlib.import_module(name)
 leaked = sorted(m for m in sys.modules
-                if m == "jax" or m.startswith("jax.")
-                or m == "youtube_vln_tpu" or m.startswith("youtube_vln_tpu."))
+                if m.split(".")[0] in ("jax", "youtube_vln_tpu", "networkx"))
 assert not leaked, leaked
-for module in ("device", "ops.philox", "training.losses", "training.optimization",
-               "parallel.train_step"):
+for module in ("device", "ops.philox", "ops.epilogue", "ops.masking",
+               "training.losses", "training.optimization", "parallel.train_step",
+               "data.store", "data.features_reader", "data.tokenizer",
+               "data.sampling", "data.instructions", "data.datasets",
+               "data.loader", "data.fixtures"):
     assert pkg.__name__ + "." + module in names, module
 
 import numpy as np
@@ -64,8 +66,26 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert r.stdout.strip().endswith("isolated")
 
 
+_HOST_ONLY = r"""
+import sys
+import youtube_vln_tpu_torch.data.datasets, youtube_vln_tpu_torch.data.fixtures
+import youtube_vln_tpu_torch.data.loader
+assert "torch" not in sys.modules, "the host pipeline imports torch"
+print("host only")
+"""
+
+
+def test_host_pipeline_imports_no_torch():
+    """The Loader's forked workers run only the datasets, the store reader
+    and numpy: none of them imports torch, so a worker forked from a
+    process with CUDA up never touches it."""
+    r = _run(["-c", _HOST_ONLY], REPO)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert r.stdout.strip().endswith("host only")
+
+
 def test_sources_hold_no_jax_import():
-    pattern = re.compile(r"^\s*(import|from)\s+(jax|youtube_vln_tpu)\b(?!_torch)",
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|youtube_vln_tpu|networkx)\b(?!_torch)",
                          re.MULTILINE)
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py",
                                           REPO / "eval_timing.py"]

@@ -8,14 +8,21 @@ ignored.  Differences from the JAX copy:
   * ``compute_dtype`` defaults to ``"bfloat16"``, the eval default of the
     JAX run configuration (``RunConfig.compute_dtype``); pass ``"float32"``
     for parity runs.
-  * ``use_attention_kernels`` replaces the TPU knobs
-    (``use_pallas_attention`` / ``use_pallas_epilogue`` / ``remat``): it
-    routes the vision self-attention and the co-attention layers through the
-    hand-written CUDA kernels of ``ops/attention.py``.
+  * ``use_attention_kernels`` replaces ``use_pallas_attention`` (``remat``
+    has no counterpart): it routes the vision self-attention and the
+    co-attention layers through the hand-written CUDA kernels of
+    ``ops/attention.py``.
+  * ``use_epilogue_kernels`` is the counterpart of ``use_pallas_epilogue``
+    and keeps its default (off).  It takes effect only together with
+    ``use_attention_kernels``, as ``select_epilogue_fn`` requires
+    ``use_pallas_attention``: then the dropout + residual + LayerNorm sites
+    that ``ops/epilogue.py:use_epilogue_kernel_for`` selects (train mode,
+    the 24 vision-stream sites of the flagship pretraining step) run the
+    CUDA kernels B5/B6.
 
 ``RunConfig`` copies the fields of ``youtube_vln_tpu/config.py:RunConfig``
-that the train step reads, with the same defaults and the ``validate``
-checks that concern them.
+that the train step and the pretraining datasets and loader read, with the
+same defaults and the ``validate`` checks that concern them.
 """
 from __future__ import annotations
 
@@ -23,7 +30,7 @@ import dataclasses
 import json
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Tuple, Union
+from typing import Optional, Tuple, Union
 
 
 @dataclass
@@ -74,7 +81,8 @@ class LilyConfig:
     masked_vision: bool = False
     # port knobs (no reference equivalent)
     compute_dtype: str = "bfloat16"     # "float32" | "bfloat16"
-    use_attention_kernels: bool = True  # CUDA kernels B1/B2 (ops/attention.py)
+    use_attention_kernels: bool = True  # CUDA kernels B1-B4 (ops/attention.py)
+    use_epilogue_kernels: bool = False  # CUDA kernels B5/B6 (ops/epilogue.py)
 
     def __post_init__(self):
         self.v_biattention_id = tuple(self.v_biattention_id)
@@ -175,8 +183,8 @@ def tiny_config(**overrides) -> LilyConfig:
 
 @dataclass
 class RunConfig:
-    """The training fields of the JAX package's ``RunConfig`` (reference
-    ``utils/cli.py`` names, so recipes translate 1:1)."""
+    """The training and data fields of the JAX package's ``RunConfig``
+    (reference ``utils/cli.py`` names, so recipes translate 1:1)."""
 
     # tasks
     ranking: bool = False
@@ -185,12 +193,29 @@ class RunConfig:
     masked_language: bool = False
     traj_loss_scale: float = 1.0
     not_traj_judge_data: bool = False
+    # data selection
     pretrain: bool = True
+    pre_dataset: str = ""                 # "ytb" | "bnb" | ""
+    skeleton_path: str = "data/task/R2R_train_templates.json"
+    # geometry
+    max_instruction_length: int = 60
+    max_path_length: int = 8
+    max_num_boxes: int = 101
+    min_path_length: int = 4
+    min_captioned: int = 2
+    max_captioned: int = 7
     # negatives
     num_negatives: int = 2
+    negative_style: str = "normal"
+    shuffler: str = "different"
     shuffle_visual_features: bool = False
     mask_action_rate: float = 0.0
+    random_action: bool = False
+    no_serial: bool = False
+    out_listing: bool = False
+    separators: bool = False
     # training
+    batch_size: int = 2
     num_epochs: int = 20
     gradient_accumulation_steps: int = 1
     learning_rate: float = 4e-5
@@ -201,6 +226,23 @@ class RunConfig:
     ConstantLR: bool = False
     lr_schedule: str = "warmup_linear"  # a key of training.optimization.SCHEDULES
     sparse_task_heads: bool = True      # decoders only on target rows
+    seed: int = 1
+    num_workers: int = 3
+    # transport
+    io_dtype: str = "float16"           # host->device dtype of features
+                                        # and targets; the model upcasts
+    sparse_vision_targets: bool = True  # ship only the masked-region
+                                        # target rows
+    dedup_candidates: Optional[bool] = None  # ship each unique trajectory's
+                                        # visual rows once per sample;
+                                        # None follows sparse_vision_targets
+
+    def __post_init__(self):
+        # tri-state: None means "follow sparse_vision_targets", so the pair
+        # defaults on together and turning sparse targets off alone
+        # restores the dense transport
+        if self.dedup_candidates is None:
+            self.dedup_candidates = self.sparse_vision_targets
 
     def validate(self) -> None:
         """Reference ``utils/utils_init.py:13-23`` (val_args)."""
@@ -215,3 +257,8 @@ class RunConfig:
             raise ValueError(
                 "when finetuning, traj_judge requires matching "
                 "--shuffle_visual_features usage")
+        if self.dedup_candidates and not self.sparse_vision_targets:
+            raise ValueError(
+                "--dedup_candidates requires --sparse_vision_targets "
+                "(dense [nc, S, 1601] vision targets would repay the "
+                "transport saving)")

@@ -23,6 +23,10 @@ means eval), keeps the JAX package's two semantics:
     ``use_kernel_for`` holds) the exact rate with a Philox mask and one
     64-bit seed per call, drawn in call order (``ops/philox.py``); the
     kernel and its plain version draw the same mask;
+  * at the epilogue kernel sites (``dropout_add_ln`` with
+    ``cfg.use_epilogue_kernels`` and ``cfg.use_attention_kernels``, where
+    ``use_epilogue_kernel_for`` holds) the same exact-rate Philox rule,
+    one seed per call from the same counter (``ops/epilogue.py``);
   * everywhere else (embeddings, hidden states, the small text
     self-attention, the fused pool) the JAX ``dropout`` of
     ``models/layers.py:78-94``: uint8 draws, keep probability quantised
@@ -37,6 +41,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import epilogue
 from ..ops.attention import (attention_reference, attention_scores,
                              fused_attention, use_kernel_for)
 from ..ops.philox import MASK64, site_seed
@@ -79,6 +84,24 @@ def dropout(x, rate: float, rng):
     bits = torch.randint(0, 256, x.shape, dtype=torch.uint8, device=x.device,
                          generator=rng.generator)
     return torch.where(bits < thresh, x * (256.0 / thresh), 0.0).to(x.dtype)
+
+
+def dropout_add_ln(h, res, ln: "LayerNorm", rate: float, rng, cfg):
+    """LayerNorm(dropout(h) + res), the sub-block epilogue (JAX
+    ``layers.py:97-105``).  Kernels B5/B6 run where ``select_epilogue_fn``
+    would pick the Pallas kernel (``epilogue.py:265-274``): both kernel
+    knobs on, train mode, a rate above 0, at least ``MIN_FUSED_ELEMENTS``
+    elements and a last dim that is a multiple of 128; such a site takes
+    the next kernel seed.  Every other site is ``dropout`` then
+    ``LayerNorm``."""
+    if (rng is not None and cfg.use_attention_kernels
+            and cfg.use_epilogue_kernels
+            and epilogue.use_epilogue_kernel_for(h.numel(), h.shape[-1], rate,
+                                                 True)):
+        return epilogue.fused_dropout_add_ln(h, res, ln.weight, ln.bias,
+                                             dropout_rate=rate,
+                                             seed=rng.kernel_seed())
+    return ln(dropout(h, rate, rng) + res)
 
 
 def attention_core(q, k, v, key_bias, rate: float = 0.0, rng=None):
@@ -168,16 +191,17 @@ class AddNorm(nn.Module):
     """LayerNorm(dropout(dense(h)) + residual): the reference's
     ``BertSelfOutput`` and ``BertOutput`` (JAX ``dropout_add_ln``)."""
 
-    def __init__(self, d_in: int, d_out: int, dropout_rate: float,
+    def __init__(self, d_in: int, d_out: int, dropout_rate: float, cfg,
                  device=None):
         super().__init__()
+        self.cfg = cfg
         self.dropout_rate = dropout_rate
         self.dense = Linear(d_in, d_out, device=device)
         self.LayerNorm = LayerNorm(d_out, device=device)
 
     def forward(self, h, residual, rng=None):
-        return self.LayerNorm(dropout(self.dense(h), self.dropout_rate, rng)
-                              + residual)
+        return dropout_add_ln(self.dense(h), residual, self.LayerNorm,
+                              self.dropout_rate, rng, self.cfg)
 
 
 class Intermediate(nn.Module):
@@ -200,7 +224,8 @@ class SelfAttention(nn.Module):
         super().__init__()
         self.self = SelfAttentionHeads(hidden, num_heads, cfg, attn_dropout,
                                        device=device)
-        self.output = AddNorm(hidden, hidden, hidden_dropout, device=device)
+        self.output = AddNorm(hidden, hidden, hidden_dropout, cfg,
+                              device=device)
 
     def forward(self, x, key_bias, rng=None):
         return self.output(self.self(x, key_bias, rng), x, rng)
@@ -221,7 +246,8 @@ class TransformerLayer(nn.Module):
         self.attention = SelfAttention(hidden, num_heads, cfg, attn_dropout,
                                        hidden_dropout, device=device)
         self.intermediate = Intermediate(hidden, inter, act, device=device)
-        self.output = AddNorm(inter, hidden, hidden_dropout, device=device)
+        self.output = AddNorm(inter, hidden, hidden_dropout, cfg,
+                              device=device)
 
     def forward(self, x, key_bias, rng=None):
         return ffn(self.attention(x, key_bias, rng), self.intermediate,

@@ -9,7 +9,10 @@ attention.self.query`` ...), so ``load_state_dict(strict=True)`` takes a
 reference-layout checkpoint once ``models/weights.py:normalize_state_dict``
 has unwrapped it.  The vision self-attention runs kernel B1 and every
 co-attention layer kernel B2 (``ops/attention.py``) when
-``cfg.use_attention_kernels`` is set; their gradients are B3 and B4.  In
+``cfg.use_attention_kernels`` is set; their gradients are B3 and B4.  With
+``cfg.use_epilogue_kernels`` as well, the large dropout + residual +
+LayerNorm sites of train mode run B5, with B6 as their gradient
+(``models/layers.py:dropout_add_ln``).  In
 train mode ``Lily.forward`` takes a 64-bit ``seed`` and applies the JAX
 package's dropout at the same sites and rates (``models/layers.py``).
 """
@@ -25,8 +28,8 @@ from ..config import LilyConfig
 from ..ops.attention import (bi_attention_reference, fused_bi_attention,
                              use_kernel_for)
 from .layers import (ACT2FN, AddNorm, DropoutRng, Intermediate, LayerNorm,
-                     Linear, TransformerLayer, attention_core, dropout, ffn,
-                     merge_heads, split_heads)
+                     Linear, TransformerLayer, attention_core, dropout,
+                     dropout_add_ln, ffn, merge_heads, split_heads)
 
 
 def compute_dtype(cfg: LilyConfig) -> torch.dtype:
@@ -140,6 +143,7 @@ class BiOutput(nn.Module):
 
     def __init__(self, cfg: LilyConfig, device=None):
         super().__init__()
+        self.cfg = cfg
         self.dense1 = Linear(cfg.bi_hidden_size, cfg.v_hidden_size, device=device)
         self.LayerNorm1 = LayerNorm(cfg.v_hidden_size, device=device)
         self.dense2 = Linear(cfg.bi_hidden_size, cfg.hidden_size, device=device)
@@ -147,10 +151,10 @@ class BiOutput(nn.Module):
         self.rates = (cfg.v_hidden_dropout_prob, cfg.hidden_dropout_prob)
 
     def forward(self, ctx_v, v_x, ctx_t, t_x, rng=None):
-        return (self.LayerNorm1(dropout(self.dense1(ctx_v), self.rates[0], rng)
-                                + v_x),
-                self.LayerNorm2(dropout(self.dense2(ctx_t), self.rates[1], rng)
-                                + t_x))
+        return (dropout_add_ln(self.dense1(ctx_v), v_x, self.LayerNorm1,
+                               self.rates[0], rng, self.cfg),
+                dropout_add_ln(self.dense2(ctx_t), t_x, self.LayerNorm2,
+                               self.rates[1], rng, self.cfg))
 
 
 class ConnectionLayer(nn.Module):
@@ -164,12 +168,12 @@ class ConnectionLayer(nn.Module):
                                            cfg.v_intermediate_size,
                                            cfg.v_hidden_act, device=device)
         self.v_output = AddNorm(cfg.v_intermediate_size, cfg.v_hidden_size,
-                                cfg.v_hidden_dropout_prob, device=device)
+                                cfg.v_hidden_dropout_prob, cfg, device=device)
         self.t_intermediate = Intermediate(cfg.hidden_size,
                                            cfg.intermediate_size,
                                            cfg.hidden_act, device=device)
         self.t_output = AddNorm(cfg.intermediate_size, cfg.hidden_size,
-                                cfg.hidden_dropout_prob, device=device)
+                                cfg.hidden_dropout_prob, cfg, device=device)
 
     def forward(self, v_x, v_bias, t_x, t_bias, rng=None):
         ctx_t, ctx_v = self.biattention(v_x, v_bias, t_x, t_bias, rng)

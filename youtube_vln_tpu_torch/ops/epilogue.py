@@ -1,0 +1,275 @@
+"""Fused dropout + residual + LayerNorm epilogue of the port: the CUDA
+kernels B5/B6 and their plain version.
+
+``fused_dropout_add_ln`` (B5 forward, B6 backward) replaces
+``youtube_vln_tpu/ops/epilogue.py`` ``_epi_fwd_kernel`` /
+``_epi_bwd_kernel`` (``pallas_dropout_add_ln``): LayerNorm(dropout(h) +
+res) per row of the last dim, with the dropout scale and the residual add
+rounded in h's dtype, LayerNorm statistics in f32 and eps 1e-12 inside the
+rsqrt.  The wrapper runs the plain PyTorch version (``epilogue_reference``,
+and ``epilogue_bwd_reference`` for the backward) when the tensors lie on
+the CPU and launches the kernels of ``csrc/epilogue.cu`` when they lie on
+a CUDA device; it never falls back from one to the other.  When autograd
+records the call, the forward runs inside ``FusedEpilogueFn`` whose
+backward is B6.  ``LAUNCHES`` counts kernel launches, one per wrapper call
+that launched.
+
+Dropout keeps an element when its Philox draw is at least rate * 2^32 (the
+exact rate of the attention kernels, ``ops/philox.py:epilogue_keep``) and
+scales kept values by 1 / (1 - rate); the mask is a pure function of (row,
+column) under the call's 64-bit seed, so B6 replays B5's mask.
+
+``use_epilogue_kernel_for`` is the site rule of the JAX package's
+``select_epilogue_fn`` (``epilogue.py:265-274``): train mode, a rate above
+0, at least ``MIN_FUSED_ELEMENTS`` elements and a last dim that is a
+multiple of 128.  At the pretraining geometry that is the vision stream
+(56 x 808 x 1024 elements), 24 sites per micro-step.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from . import _build
+from .attention import _Dropout, _dropout, _on_cpu, _records_grad
+from .philox import EPILOGUE_DIRECTION, epilogue_keep
+
+LN_EPS = 1e-12
+# only where the mask traffic matters (the JAX package's threshold); tests
+# may lower it to reach the kernel sites at small shapes
+MIN_FUSED_ELEMENTS = 1 << 22
+MAX_D = 1024                 # csrc/epilogue.cu: a lane holds D / 32 values
+ROWS_PER_BLOCK = 8           # csrc/epilogue.cu WARPS
+BWD_BLOCKS_PER_SM = 4        # B6 grid: at most 4 blocks per SM
+
+# kernel launches per wrapper, counted where the kernel is launched
+LAUNCHES = {"epilogue_fwd": 0, "epilogue_bwd": 0}
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def use_epilogue_kernel_for(numel: int, d: int, rate: float,
+                            train: bool) -> bool:
+    """Whether a dropout + add + LayerNorm site runs the fused epilogue
+    (``select_epilogue_fn.fn``)."""
+    return (train and rate > 0.0 and numel >= MIN_FUSED_ELEMENTS
+            and d % 128 == 0)
+
+
+# --------------------------------------------------------------------------- #
+# plain versions
+# --------------------------------------------------------------------------- #
+def _keep_scale(rate: float) -> float:
+    return 1.0 / (1.0 - rate)
+
+
+def _check_pair(h, res):
+    if h.shape != res.shape or h.dtype != res.dtype:
+        raise ValueError(f"h {tuple(h.shape)} {h.dtype} and res "
+                         f"{tuple(res.shape)} {res.dtype} must match")
+
+
+def _keep(h, rate: float, seed: int):
+    d = h.shape[-1]
+    return epilogue_keep(seed, rate, h.numel() // d, d,
+                         h.device).view(h.shape)
+
+
+def _dropped(h, rate: float, seed: int):
+    """dropout(h) rounded to h's dtype: kept values times 1 / (1 - rate)."""
+    if rate == 0.0:
+        return h
+    return torch.where(_keep(h, rate, seed), h * _keep_scale(rate),
+                       0.0).to(h.dtype)
+
+
+def _normalised(h, res, rate, seed):
+    """(yhat, rstd) of LayerNorm(dropout(h) + res) in f32."""
+    y = (_dropped(h, rate, seed) + res).float()
+    u = y.mean(-1, keepdim=True)
+    s = (y - u).square().mean(-1, keepdim=True)
+    rstd = torch.rsqrt(s + LN_EPS)
+    return (y - u) * rstd, rstd
+
+
+def epilogue_reference(h, res, weight, bias, dropout_rate: float = 0.0,
+                       seed: int = 0):
+    """LayerNorm(dropout(h) + res) with ``weight``/``bias`` (f32, [D]),
+    in h's dtype; at rate 0 it is ``models/layers.py:LayerNorm`` of h + res,
+    op for op."""
+    _check_pair(h, res)
+    yhat, _ = _normalised(h, res, dropout_rate, seed)
+    return (weight * yhat + bias).to(h.dtype)
+
+
+def epilogue_bwd_reference(h, res, weight, do, dropout_rate: float = 0.0,
+                           seed: int = 0):
+    """(dh, dres, dw, db) of ``epilogue_reference`` for the output gradient
+    ``do``, as the TPU kernel computes them (``_epi_bwd_kernel``): recompute
+    yhat and rstd, dy = rstd (dyhat - mean(dyhat) - yhat mean(dyhat yhat))
+    with dyhat = do w, dres = dy, dh = dy with the mask replayed, dw = sum
+    do yhat and db = sum do over the rows, in f32."""
+    _check_pair(h, res)
+    d = h.shape[-1]
+    yhat, rstd = _normalised(h, res, dropout_rate, seed)
+    do32 = do.float()
+    dyhat = do32 * weight
+    m1 = dyhat.mean(-1, keepdim=True)
+    m2 = (dyhat * yhat).mean(-1, keepdim=True)
+    dy = rstd * (dyhat - m1 - yhat * m2)
+    dh = dy
+    if dropout_rate > 0.0:
+        dh = torch.where(_keep(h, dropout_rate, seed),
+                         dy * _keep_scale(dropout_rate), 0.0)
+    return (dh.to(h.dtype), dy.to(res.dtype),
+            (do32 * yhat).reshape(-1, d).sum(0).to(weight.dtype),
+            do32.reshape(-1, d).sum(0).to(weight.dtype))
+
+
+# --------------------------------------------------------------------------- #
+# kernel interface (csrc/epilogue.cu)
+# --------------------------------------------------------------------------- #
+class _Epilogue(ctypes.Structure):
+    """Mirror of ``struct Epilogue`` in csrc/epilogue.cu."""
+    _fields_ = ([(n, ctypes.c_void_p) for n in
+                 ("h", "res", "w", "b", "dout", "out", "dh", "dres",
+                  "dw_part", "db_part", "dw", "db")]
+                + [(n, ctypes.c_int) for n in ("n_rows", "d", "n_blocks")]
+                + [("dropout", _Dropout)])
+
+
+_kernels = {}
+
+
+def _kernel(name: str):
+    """The C entry ``vln_<name>`` of ``csrc/epilogue.cu``, built on first
+    use."""
+    fn = _kernels.get(name)
+    if fn is None:
+        fn = getattr(_build.load("epilogue"), f"vln_{name}")
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _kernels[name] = fn
+    return fn
+
+
+def _rows(x: torch.Tensor, d: int) -> torch.Tensor:
+    """x as the kernels read it: contiguous [N, d] on a 16-byte boundary."""
+    x = x.reshape(-1, d)
+    if not x.is_contiguous() or x.data_ptr() % 16:
+        x = x.clone(memory_format=torch.contiguous_format)
+    return x
+
+
+def _check_kernel_operands(h, res, weight, *params):
+    _check_pair(h, res)
+    d = h.shape[-1]
+    if h.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"epilogue kernel takes bf16 or f32, got {h.dtype}")
+    if d % 128 or d > MAX_D or h.numel() == 0:
+        raise ValueError(f"epilogue kernel takes a last dim that is a "
+                         f"multiple of 128 up to {MAX_D} and N >= 1, got "
+                         f"{tuple(h.shape)}")
+    for p in (weight,) + params:
+        if p.shape != (d,) or p.dtype != torch.float32:
+            raise ValueError(f"LayerNorm parameters must be [{d}] float32, "
+                             f"got {tuple(p.shape)} {p.dtype}")
+
+
+def _launch(name: str, problem: _Epilogue, h: torch.Tensor) -> None:
+    with torch.cuda.device(h.device):
+        stream = torch.cuda.current_stream(h.device).cuda_stream
+        err = _kernel(name)(ctypes.byref(problem),
+                            int(h.dtype == torch.bfloat16), stream)
+    if err != 0:
+        raise RuntimeError(f"vln_{name} failed with CUDA error {err}")
+
+
+def _param(p: torch.Tensor) -> torch.Tensor:
+    return _rows(p, p.shape[0])[0]
+
+
+def _epilogue_fwd(h, res, weight, bias, rate, seed):
+    """B5 on CUDA operands: (out [N, D], the operands as read)."""
+    _check_kernel_operands(h, res, weight, bias)
+    d = h.shape[-1]
+    h, res, weight, bias = _rows(h, d), _rows(res, d), _param(weight), _param(bias)
+    out = torch.empty_like(h)
+    problem = _Epilogue(h=h.data_ptr(), res=res.data_ptr(), w=weight.data_ptr(),
+                        b=bias.data_ptr(), out=out.data_ptr(), n_rows=h.shape[0],
+                        d=d, dropout=_dropout(rate, seed, EPILOGUE_DIRECTION))
+    _launch("epilogue_fwd", problem, h)
+    LAUNCHES["epilogue_fwd"] += 1
+    return out, (h, res, weight)
+
+
+def _bwd_blocks(n_rows: int, device) -> int:
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return max(1, min(math.ceil(n_rows / ROWS_PER_BLOCK), BWD_BLOCKS_PER_SM * sms))
+
+
+def _epilogue_bwd(h, res, weight, do, rate, seed):
+    """B6 on CUDA operands (as ``_epilogue_fwd`` read them): (dh, dres, dw,
+    db); dh/dres [N, D] in h's dtype, dw/db [D] f32."""
+    n, d = h.shape
+    do = _rows(do.to(h.dtype), d)
+    n_blocks = _bwd_blocks(n, h.device)
+    dh, dres = torch.empty_like(h), torch.empty_like(h)
+    parts = torch.empty(2, n_blocks, d, dtype=torch.float32, device=h.device)
+    dw_db = torch.empty(2, d, dtype=torch.float32, device=h.device)
+    problem = _Epilogue(h=h.data_ptr(), res=res.data_ptr(), w=weight.data_ptr(),
+                        dout=do.data_ptr(), dh=dh.data_ptr(), dres=dres.data_ptr(),
+                        dw_part=parts[0].data_ptr(), db_part=parts[1].data_ptr(),
+                        dw=dw_db[0].data_ptr(), db=dw_db[1].data_ptr(),
+                        n_rows=n, d=d, n_blocks=n_blocks,
+                        dropout=_dropout(rate, seed, EPILOGUE_DIRECTION))
+    _launch("epilogue_bwd", problem, h)
+    LAUNCHES["epilogue_bwd"] += 1
+    return dh, dres, dw_db[0], dw_db[1]
+
+
+class FusedEpilogueFn(torch.autograd.Function):
+    """B5 forward, B6 backward (plain versions for CPU tensors)."""
+
+    @staticmethod
+    def forward(ctx, h, res, weight, bias, dropout_rate, seed):
+        ctx.rate, ctx.seed, ctx.shape = dropout_rate, seed, h.shape
+        ctx.on_cpu = _on_cpu(h, res, weight, bias)
+        if ctx.on_cpu:
+            ctx.save_for_backward(h, res, weight)
+            return epilogue_reference(h, res, weight, bias, dropout_rate, seed)
+        out, operands = _epilogue_fwd(h, res, weight, bias, dropout_rate, seed)
+        ctx.save_for_backward(*operands)
+        return out.view(h.shape)
+
+    @staticmethod
+    def backward(ctx, do):
+        h, res, weight = ctx.saved_tensors
+        if ctx.on_cpu:
+            dh, dres, dw, db = epilogue_bwd_reference(h, res, weight, do,
+                                                      ctx.rate, ctx.seed)
+        else:
+            dh, dres, dw, db = _epilogue_bwd(h, res, weight, do, ctx.rate,
+                                             ctx.seed)
+        return (dh.view(ctx.shape), dres.view(ctx.shape), dw, db, None, None)
+
+
+def fused_dropout_add_ln(h, res, weight, bias, *, dropout_rate: float = 0.0,
+                         seed: int = 0):
+    """B5: LayerNorm(dropout(h) + res) over the last dim; its gradient is
+    B6.
+
+    h, res: [..., D] of one dtype (bf16 or f32 on the card, D a multiple of
+    128 up to 1024); weight, bias: [D] f32; ``seed`` is the call's 64-bit
+    dropout seed.  Returns h's shape and dtype."""
+    if _records_grad(h, res, weight, bias):
+        return FusedEpilogueFn.apply(h, res, weight, bias, float(dropout_rate),
+                                     int(seed))
+    if _on_cpu(h, res, weight, bias):
+        return epilogue_reference(h, res, weight, bias, dropout_rate, seed)
+    return _epilogue_fwd(h, res, weight, bias, dropout_rate, seed)[0].view(h.shape)

@@ -18,6 +18,17 @@ least rate * 2^32 (``attention.py:44-45``); kept values scale by
 1 / (1 - rate).  ``csrc/philox.cuh`` computes the same function on the
 card, so a kernel and its plain version drop the same entries.
 
+The epilogue kernels B5/B6 (``ops/epilogue.py``) drop elements of an
+[N, D] input, and one Philox call serves four neighbouring columns:
+
+    keep(seed, row, col) =
+        philox4x32_10(counter=(row, col // 4, 0, EPILOGUE_DIRECTION),
+                      key=(seed_lo, seed_hi))[col % 4] >= threshold(rate)
+
+with ``row`` the global row of the flattened input and direction 2, so
+these counters never meet the attention ones.  The rate is exact, as at
+the attention sites, not the uint8 rule of the XLA-path dropout.
+
 Plain torch has no unsigned 32-bit product, and a 32 x 32 -> 64-bit
 product overflows int64; ``_mulhilo`` splits one operand into 16-bit
 halves so every intermediate stays below 2^49.
@@ -33,6 +44,7 @@ MASK64 = 0xFFFFFFFFFFFFFFFF
 PHILOX_M0, PHILOX_M1 = 0xD2511F53, 0xCD9E8D57
 PHILOX_W0, PHILOX_W1 = 0x9E3779B9, 0xBB67AE85
 ROUNDS = 10
+EPILOGUE_DIRECTION = 2
 # elements per chunk of a mask (int64 temporaries of 128 MiB each)
 _CHUNK = 1 << 24
 
@@ -101,3 +113,22 @@ def dropout_keep(seed: int, rate: float, batch: int, heads: int, s_q: int,
         word = philox4x32(i, j, stream, direction, key)[0]
         out[r0:r0 + step] = word >= thresh
     return out.view(batch, heads, s_q, s_kv)
+
+
+def epilogue_keep(seed: int, rate: float, n_rows: int, d: int,
+                  device=None) -> torch.Tensor:
+    """The keep mask [n_rows, d] (bool) of one epilogue call (d a multiple
+    of 4), bit for bit the mask kernels B5/B6 draw."""
+    if d % 4:
+        raise ValueError(f"epilogue mask needs d % 4 == 0, got {d}")
+    key = seed_key(seed)
+    thresh = keep_threshold(rate)
+    group = torch.arange(d // 4, dtype=torch.int64, device=device)[None, :]
+    out = torch.empty(n_rows, d // 4, 4, dtype=torch.bool, device=device)
+    step = max(1, _CHUNK // d)
+    for r0 in range(0, n_rows, step):
+        rows = torch.arange(r0, min(r0 + step, n_rows), dtype=torch.int64,
+                            device=device)[:, None]
+        words = philox4x32(rows, group, 0, EPILOGUE_DIRECTION, key)
+        out[r0:r0 + step] = torch.stack(words, dim=-1) >= thresh
+    return out.view(n_rows, d)
