@@ -6,9 +6,14 @@
 Phases, each fatal on failure:
   1. the card's name and power limit (nvidia-smi);
   2. the build of every CUDA kernel from ``youtube_vln_tpu_torch/ops/csrc``
-     (one nvcc per source, all at once);
+     (one nvcc per source, all at once, ``-Xptxas -v``): registers, stack
+     and spills of every kernel instance, fatal on a spill in a bf16
+     D = 128 instance; the blocks per SM of B1-B4 (at least 2 in bf16 at
+     D = 128);
   3. the forward kernels B1/B2 against their plain PyTorch versions at the
-     beam-eval shapes and at odd lengths, in bf16 and f32;
+     beam-eval shapes and at odd lengths, in bf16 and f32; then B1-B4 at
+     the edges of the kernels' tiling: B*H = 1, S_q and S_kv of 1, 17 and
+     65, D 64 and 128, bf16 and f32, dropout 0 and 0.1;
   4. the eval path: the beam re-ranking scorer (``eval_epoch``) at the full
      flagship width (``lily_base_config``, random weights from the seed,
      bf16), on a few requests of 30 beams x (60 text + 808 visual tokens),
@@ -51,13 +56,15 @@ Phases, each fatal on failure:
  13. a ``kernels`` JSON line: per kernel its launches on the eval, the
      fine-tuning and the pretraining path, error, time, bound, plain time
      and a library call's time at the train shapes (B1/B2 also at the eval
-     shapes, B5/B6 at the pretraining shape).
+     shapes, B5/B6 at the pretraining shape); B1-B4 also carry the bf16
+     D = 128 registers and blocks per SM.
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or without the package beside it, the script exits non-zero.
 """
 import argparse
 import contextlib
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -133,7 +140,7 @@ def key_bias(gen, b, s, keep=0.9, masked_rows=(0,)):
     return bias
 
 
-def check(name, got, want, rel_tol, floor=1.0) -> float:
+def check(name, got, want, rel_tol, floor=1.0, verbose=True) -> float:
     """max |got - want| <= rel_tol * max(floor, max |want|); gradients use
     floor 0, so their tolerance scales with the largest gradient."""
     import torch
@@ -142,8 +149,9 @@ def check(name, got, want, rel_tol, floor=1.0) -> float:
     scale = max(floor, float(want.float().abs().max()))
     err = float((got.float() - want.float()).abs().max())
     tol = rel_tol * scale
-    print(f"check {name}: max_abs_err {err:.3e} (tol {tol:.2e} = "
-          f"{rel_tol:.0e} x {scale:.3g})")
+    if verbose or not err <= tol:
+        print(f"check {name}: max_abs_err {err:.3e} (tol {tol:.2e} = "
+              f"{rel_tol:.0e} x {scale:.3g})")
     if not err <= tol:
         fail(f"{name}: max_abs_err {err} above {tol}")
     return err
@@ -179,6 +187,84 @@ def no_epilogue_launches(launches, what) -> None:
 
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def ptxas_summary(log):
+    """Per kernel instance in an ``nvcc -Xptxas -v`` log: registers, stack
+    frame and spill bytes (a ``Function properties`` line, then its
+    ``spill`` and ``Used N registers`` lines)."""
+    out, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            cur = {"function": m.group(1)}
+            out.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            cur["stack"], cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+    return out
+
+
+def kernel_instance(mangled):
+    """(kernel name, element type, head dim) of a mangled kernel symbol."""
+    m = re.search(r"((?:attention_fwd|attention_bwd|delta|epilogue_fwd|epilogue_bwd|"
+                  r"column_sum)_kernel)I?(13__nv_bfloat16|f)?(?:Li(\d+)E)?", mangled)
+    if not m:
+        return mangled[:60], "", None
+    dtype = {"13__nv_bfloat16": "bf16", "f": "f32"}.get(m.group(2) or "", "")
+    return m.group(1), dtype, int(m.group(3)) if m.group(3) else None
+
+
+def build_kernels():
+    """Phase 2: every kernel built from ``ops/csrc`` with ``-Xptxas -v``
+    (one nvcc per source, all at once): registers, stack and spills per
+    instance, fatal on any spill in a bf16 D = 128 instance; then the
+    blocks per SM of the B1-B4 instances (occupancy query).  Returns the
+    bf16 D = 128 numbers of B1-B4 by kernels-line name."""
+    import ctypes
+
+    from youtube_vln_tpu_torch.ops import _build
+    t0 = time.perf_counter()
+    logs = _build.build_all(verbose=True)
+    print(f"build: {', '.join(logs)} in {time.perf_counter() - t0:.1f} s")
+    regs = {}
+    for source, log in logs.items():
+        for f in ptxas_summary(log):
+            name, dtype, d = kernel_instance(f["function"])
+            print(f"  ptxas {source}: {name} <{dtype}, {d}>: {f.get('registers')} "
+                  f"registers, {f.get('stack')} B stack, {f.get('spill_stores')} B "
+                  f"spill stores, {f.get('spill_loads')} B spill loads")
+            if dtype == "bf16" and d == 128:
+                if f.get("spill_stores") or f.get("spill_loads"):
+                    fail(f"{name} <bf16, 128> spills: {f}")
+                regs[name] = f.get("registers")
+    occupancy = {}
+    for source, kernel, names in (
+            ("attention_fwd", "attention_fwd_kernel", ("attention_fwd", "bi_attention_fwd")),
+            ("attention_bwd", "attention_bwd_kernel", ("attention_bwd", "bi_attention_bwd"))):
+        lib = _build.load(source)
+        blocks, smem = {}, {}
+        for table, query in ((blocks, lib[f"vln_{source}_blocks_per_sm"]),
+                             (smem, lib[f"vln_{source}_smem_bytes"])):
+            query.argtypes, query.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
+            table.update({f"{'bf16' if bf else 'f32'} D={d}": query(d, bf)
+                          for bf in (1, 0) for d in (128, 64)})
+        print(f"  blocks per SM, {kernel}: {blocks}")
+        print(f"  shared memory per block (B), {kernel}: {smem}")
+        if blocks["bf16 D=128"] < 2:
+            fail(f"{kernel} <bf16, 128>: {blocks['bf16 D=128']} block per SM, expected 2")
+        for n in names:
+            occupancy[n] = {"registers": regs.get(kernel),
+                            "smem_bytes": smem["bf16 D=128"],
+                            "blocks_per_sm": blocks["bf16 D=128"]}
+    return occupancy
 
 
 def kernel_checks(seed):
@@ -264,6 +350,70 @@ def kernel_checks(seed):
             F.scaled_dot_product_attention(q2, k1, v1, attn_mask=vm),
             F.scaled_dot_product_attention(q1, k2, v2, attn_mask=tm))))
     return rows
+
+
+def edge_checks(seed):
+    """Phase 3b: B1-B4 against their plain versions at the edges of the
+    kernels' tiling (64-row tiles, 16-row warp strips, 8-key n-tiles):
+    B*H = 1, S_q and S_kv of 1, 17 and 65 (keys not a multiple of 8), D 64
+    and 128, bf16 and f32, dropout 0 and 0.1.  Outputs at the TOL rule,
+    row log-sum-exps at 1e-5; a call's gradients at the TOL rule over the
+    largest of its gradients, since with one key dQ and dK are 0 in exact
+    arithmetic and the kernels' Delta = rowsum(dO o O) rounds to O's type."""
+    import torch
+    from youtube_vln_tpu_torch.ops import attention as A
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 3)
+    drop_seed = 0xED6E + seed
+    lengths = (1, 17, 65)
+    n = 0
+    for dtype in (torch.bfloat16, torch.float32):
+        tol = TOL[str(dtype)[6:]]
+        for d in (64, 128):
+            for rate in (0.0, RATE):
+                for s_q in lengths:
+                    for s_kv in lengths:
+                        tag = f"{str(dtype)[6:]} 1x1 {s_q}x{s_kv} D={d} rate {rate}"
+                        q, do = (heads_view(gen, 1, 1, s_q, d, dtype) for _ in range(2))
+                        k, v = (heads_view(gen, 1, 1, s_kv, d, dtype) for _ in range(2))
+                        bias = key_bias(gen, 1, s_kv, masked_rows=())
+                        out, lse, _ = A._attention_fwd(q, k, v, bias, rate, drop_seed, True)
+                        check(f"edge B1 {tag}", out,
+                              A.attention_reference(q, k, v, bias, rate, drop_seed), tol, verbose=False)
+                        check(f"edge B1 lse {tag}", lse,
+                              A.attention_lse_reference(q, k, bias), 1e-5, verbose=False)
+                        got = A._attention_bwd(q, k, v, bias, out, do, lse, rate, drop_seed)
+                        want = A.attention_bwd_reference(q, k, v, bias, do, rate, drop_seed)
+                        floor = max(float(w.float().abs().max()) for w in want)
+                        for name, g, w in zip("qkv", got, want):
+                            check(f"edge B3 d{name} {tag}", g, w, tol, floor, verbose=False)
+                        n += 1
+                for s_v, s_t in ((65, 17), (17, 1), (1, 65)):
+                    tag = f"{str(dtype)[6:]} 1x1 {s_t}<->{s_v} D={d} rate {rate}"
+                    vis = [heads_view(gen, 1, 1, s_v, d, dtype) for _ in range(3)]
+                    txt = [heads_view(gen, 1, 1, s_t, d, dtype) for _ in range(3)]
+                    vb = key_bias(gen, 1, s_v, masked_rows=())
+                    tb = key_bias(gen, 1, s_t, masked_rows=())
+                    do1 = heads_view(gen, 1, 1, s_t, d, dtype)
+                    do2 = heads_view(gen, 1, 1, s_v, d, dtype)
+                    c1, c2, l1, l2, _ = A._bi_attention_fwd(*vis, *txt, vb, tb, rate, rate,
+                                                            drop_seed, True)
+                    w1, w2 = A.bi_attention_reference(*vis, *txt, vb, tb, rate, rate, drop_seed)
+                    check(f"edge B2 ctx1 {tag}", c1, w1, tol, verbose=False)
+                    check(f"edge B2 ctx2 {tag}", c2, w2, tol, verbose=False)
+                    got = A._bi_attention_bwd(*vis, *txt, vb, tb, c1, c2, l1, l2, do1, do2,
+                                              rate, rate, drop_seed)
+                    want = A.bi_attention_bwd_reference(*vis, *txt, vb, tb, do1, do2, rate,
+                                                        rate, drop_seed)
+                    # one floor per direction: (dq2, dk1, dv1) and (dq1, dk2, dv2)
+                    for names, idx in ((("q2", "k1", "v1"), (3, 1, 2)),
+                                       (("q1", "k2", "v2"), (0, 4, 5))):
+                        floor = max(float(want[i].float().abs().max()) for i in idx)
+                        for name, i in zip(names, idx):
+                            check(f"edge B4 d{name} {tag}", got[i], want[i], tol, floor, verbose=False)
+                    n += 1
+    print(f"edge checks: {n} calls of B1/B3 and B2/B4 at B*H = 1 held (each "
+          f"check prints only on failure)")
 
 
 def dedup_request(rng, rid, n_real=NC):
@@ -1283,16 +1433,10 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
 
-    from youtube_vln_tpu_torch.ops import _build
-    t0 = time.perf_counter()
-    logs = _build.build_all(verbose=True)
-    print(f"build: {', '.join(logs)} in {time.perf_counter() - t0:.1f} s")
-    for name, log in logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line or "Compiling" in line:
-                print(f"  {name}: {line.strip()}")
+    occupancy = build_kernels()
 
     eval_rows = kernel_checks(args.seed)
+    edge_checks(args.seed)
     launches_eval = main_path(args.seed)
     rows = train_kernel_checks(args.seed)
     launches_train = train_path(args.seed)
@@ -1307,6 +1451,7 @@ def main() -> int:
                            + launches_pretrain[name])
         if name in eval_rows:
             row["eval_shape"] = {k: eval_rows[name][k] for k in keys}
+        row.update(occupancy.get(name, {}))
     print(smi.stdout.strip().splitlines()[0])
     print(json.dumps({"kernels": list(rows.values())}))
     print(json.dumps({"ok": True, "device": {

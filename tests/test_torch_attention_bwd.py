@@ -156,9 +156,95 @@ def test_dropout_mask_is_deterministic_and_seeded():
     assert not torch.equal(philox.dropout_keep(1 << 40, RATE, 1, 1, 40, 50),
                            philox.dropout_keep(0, RATE, 1, 1, 40, 50))
     # one element is a pure function of (seed, stream, row, key, direction):
-    # a sub-block equals the mask of the whole
-    word = philox.philox4x32(7, 9, 1 * 3 + 2, 0, philox.seed_key(123))[0]
-    assert bool(a[1, 2, 7, 9]) == (int(word) >= philox.keep_threshold(RATE))
+    # (7, 9) reads word 1 of the group counter (7, 4, stream, 0); (15, 9)
+    # word 3 of the same call; (23, 48) word 2 of counter (15, 24, ...)
+    thresh, key = philox.keep_threshold(RATE), philox.seed_key(123)
+    for (i, j), ctr, w in (((7, 9), (7, 4), 1), ((15, 9), (7, 4), 3),
+                           ((23, 48), (15, 24), 2), ((0, 0), (0, 0), 0)):
+        word = philox.philox4x32(*ctr, 1 * 3 + 2, 0, key)[w]
+        assert bool(a[1, 2, i, j]) == (int(word) >= thresh)
+
+
+def _group_words(seed, rate, stream, i0, j0, direction=0):
+    """The four keep bits of one Philox call: the group of rows {i0, i0 + 8}
+    and keys {j0, j0 + 1} (i0 % 16 < 8, j0 even)."""
+    words = philox.philox4x32(((i0 >> 4) << 3) | (i0 & 7), j0 >> 1, stream,
+                              direction, philox.seed_key(seed))
+    return [int(w) >= philox.keep_threshold(rate) for w in words]
+
+
+def test_one_philox_call_serves_a_two_by_two_group():
+    """Rows {i0, i0 + 8} x keys {j0, j0 + 1} read words x, y, z, w of one
+    call, in that order; no two groups share a counter."""
+    keep = philox.dropout_keep(31, 0.5, 1, 3, 48, 40, direction=1)
+    for i0 in (0, 5, 16, 23, 39):
+        for j0 in (0, 6, 38):
+            bits = _group_words(31, 0.5, 2, i0, j0, direction=1)
+            assert bits == [bool(keep[0, 2, i0, j0]), bool(keep[0, 2, i0, j0 + 1]),
+                            bool(keep[0, 2, i0 + 8, j0]),
+                            bool(keep[0, 2, i0 + 8, j0 + 1])], (i0, j0)
+    counters = {(((i >> 4) << 3) | (i & 7), j >> 1)
+                for i in range(48) for j in range(40)}
+    assert len(counters) == 48 * 40 // 4
+
+
+@pytest.mark.parametrize("s_q,s_kv", [(1, 808), (17, 61), (61, 17), (808, 1),
+                                      (808, 808)])
+def test_dropout_mask_tiles_are_slices_of_the_whole(s_q, s_kv):
+    """The mask of any tile, at origins that are no multiple of 16 or 64,
+    equals that tile's slice of the whole mask: every bit is a pure
+    function of (row, key), as the forward and both backward passes need."""
+    whole = philox.dropout_keep(2025, RATE, 1, 2, s_q, s_kv, direction=1)
+    rng = np.random.default_rng(s_q * 1000 + s_kv)
+    for rows in (1, 17, 61, 808):
+        for cols in (1, 17, 61, 808):
+            if rows > s_q or cols > s_kv:
+                continue
+            q0 = int(rng.integers(0, s_q - rows + 1))
+            k0 = int(rng.integers(0, s_kv - cols + 1))
+            tile = philox.dropout_keep(2025, RATE, 1, 2, rows, cols, direction=1,
+                                       q0=q0, k0=k0)
+            assert torch.equal(tile, whole[:, :, q0:q0 + rows, k0:k0 + cols]), (
+                q0, k0, rows, cols)
+    for q0, k0 in ((3, 5), (13, 1), (9, 63)):   # odd origins against the whole
+        rows, cols = min(s_q - q0, 17), min(s_kv - k0, 17)
+        if rows > 0 and cols > 0:
+            tile = philox.dropout_keep(2025, RATE, 1, 2, rows, cols, direction=1,
+                                       q0=q0, k0=k0)
+            assert torch.equal(tile, whole[:, :, q0:q0 + rows, k0:k0 + cols])
+
+
+def _query_order(p):
+    """attention_bwd.cu query_order: the query row at position p of a
+    16-query block of the dK/dV pass."""
+    return 8 * (p & 1) + 4 * (p >> 3) + ((p >> 1) & 3)
+
+
+def test_kernel_fragments_hold_whole_groups():
+    """What each thread of the bf16 kernels holds of an m16n8 accumulator
+    (rows {g, g + 8} x columns {2t, 2t + 1} of each n-tile, lane = 4g + t)
+    is one Philox group in every pass: the forward and the dQ pass in the
+    plain layout (rows queries, columns keys), the dK/dV pass in the
+    transposed layout with its keys read in the order 0, 2, .., 14, 1, .., 15
+    and its queries in query_order."""
+    assert sorted(_query_order(p) for p in range(16)) == list(range(16))
+
+    def group(i, j):
+        return ((i >> 4) << 3) | (i & 7), j >> 1
+
+    for warp in range(4):
+        for lane in range(32):
+            g, t = lane // 4, lane % 4
+            for n in range(8):      # forward / dQ: 16 rows x 8 keys per n-tile
+                rows = (16 * warp + g, 16 * warp + g + 8)
+                keys = (8 * n + 2 * t, 8 * n + 2 * t + 1)
+                assert len({group(i, j) for i in rows for j in keys}) == 1
+            for n in range(4):      # dK/dV: 16 keys x 8 query positions
+                keys = (16 * warp + 2 * g, 16 * warp + 2 * g + 1)   # rows g, g + 8
+                block, col = 16 * (n >> 1), 8 * (n & 1) + 2 * t
+                queries = (block + _query_order(col), block + _query_order(col + 1))
+                assert len({group(i, j) for i in queries for j in keys}) == 1
+                assert queries[1] == queries[0] + 8 and keys[0] % 2 == 0
 
 
 @pytest.mark.parametrize("rate", [0.1, 0.5])

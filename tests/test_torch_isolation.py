@@ -88,7 +88,8 @@ def test_sources_hold_no_jax_import():
     pattern = re.compile(r"^\s*(import|from)\s+(jax|youtube_vln_tpu|networkx)\b(?!_torch)",
                          re.MULTILINE)
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py",
-                                          REPO / "eval_timing.py"]
+                                          REPO / "eval_timing.py",
+                                          REPO / "kernel_timing.py"]
     assert {"philox.py", "optimization.py", "device.py"} <= {f.name for f in files}
     for f in files:
         assert not pattern.search(f.read_text()), f
@@ -107,5 +108,11 @@ def test_chip_smoke_fails_without_a_card(tmp_path):
 
 def test_eval_timing_fails_without_a_card():
     r = _run(["eval_timing.py"], REPO)
+    assert r.returncode != 0, r.stdout
+    assert "no CUDA device" in r.stderr
+
+
+def test_kernel_timing_fails_without_a_card():
+    r = _run(["kernel_timing.py"], REPO)
     assert r.returncode != 0, r.stdout
     assert "no CUDA device" in r.stderr

@@ -9,45 +9,70 @@
 // problem 0 followed by those of problem 1 (B1 passes an empty problem 1),
 // and B2 runs both directions in ONE launch as the TPU kernel does.
 //
-// What bounds it on an H100 (bf16, per launch at the beam-eval geometry,
-// B*H = 30*8 = 240, D = 128; tensor-core peak 989 TFLOP/s, HBM 3.35 TB/s):
-//   B1 S_q = S_kv = 808: 4*240*808*808*128 = 80.2 GFLOP (81 us) against
-//      4*240*808*128*2 B = 199 MB of q/k/v/out (59 us): operation-bound.
-//   B2 60 <-> 808: 8*240*60*808*128 = 11.9 GFLOP (12 us) against
-//      (4*808 + 4*60)*240*128*2 B = 213 MB (64 us): memory-bound.
+// What bounds it on an H100 (bf16, D = 128; tensor-core peak 989 TFLOP/s,
+// HBM 3.35 TB/s; 4 FLOP per (query, key, d) for Q K^T and P V):
+//   B1 eval, B*H = 30*8 = 240, 808 x 808: 80.2 GFLOP (0.081 ms) against
+//      199 MB of q/k/v/out (0.059 ms): operation-bound.
+//   B1 train, B*H = 96*8 = 768, 808 x 808: 257 GFLOP (0.260 ms) against
+//      636 MB (0.190 ms): operation-bound.
+//   B2 60 <-> 808 (train shape): 95 GFLOP against 686 MB (0.205 ms):
+//      memory-bound.
 //
-// Design.  The TPU kernel keeps the whole S_q x S_kv f32 score tile in VMEM
-// (808 x 808 x 4 B = 2.6 MB); one SM has 227 KB of shared memory.  So the
-// key/value axis is tiled with an online softmax (running row max m and
-// row sum l, flash-attention style), and nothing of size S_q x S_kv ever
-// reaches device memory:
+// Design of the bf16 instances (the main path), flash-attention-2 style.
+// The TPU kernel keeps the whole S_q x S_kv f32 score tile in VMEM (808 x
+// 808 x 4 B = 2.6 MB); one SM has 227 KB of shared memory, so the key axis
+// is tiled with an online softmax and nothing of size S_q x S_kv leaves
+// the registers:
 //   * one block of 4 warps per (b*h, 64-row query tile); each warp owns 16
-//     query rows, so the softmax of a row never leaves its warp;
-//   * the Q tile and each 64-row K and V tile are staged in shared memory
-//     with 16-byte loads; q, k, v and out are read and written through
-//     their strides (last dim contiguous), so the transposed views of
-//     split_heads / merge_heads need no copy;
-//   * bf16: Q K^T and P V run on the tensor cores (WMMA 16x16x16, f32
-//     accumulators); the f32 path (parity) multiplies on the CUDA cores
-//     in full f32;
-//   * scores, softmax statistics and the output accumulator stay in f32.
-// Not yet used: wgmma, TMA and a pipelined K/V ring (later work).
+//     query rows, and its Q fragments stay in registers for the whole key
+//     loop;
+//   * S = Q K^T with mma.sync.m16n8k16 (bf16 in, f32 accumulate; mma.cuh),
+//     K fragments through ldmatrix, V through ldmatrix.trans;
+//   * scores, the running max m and the running sum l stay in registers: a
+//     thread holds rows {r, r + 8} x keys {2c, 2c + 1} of each 8-key
+//     n-tile, so a row's max reduces over the 4 lanes that share it (two
+//     __shfl_xor_sync steps); each lane keeps a partial l, summed once at
+//     the end;
+//   * P goes from the f32 accumulators straight into the bf16 A fragments
+//     of P V (the C layout of two n-tiles is the A layout of one k-step);
+//     the 16 x D output accumulator stays in registers and is normalised
+//     once at the end;
+//   * K and V (and the key bias) come through a 2-stage ring filled by
+//     cp.async: tile j + 1 is in flight while tile j is computed;
+//   * shared memory: Q + 2 x (K, V) tiles at a 16-byte padded row stride
+//     (ldmatrix without bank conflicts) = 87,552 B at D = 128 (46,592 B at
+//     D = 64), so two blocks fit on an SM (__launch_bounds__(128, 2)).
+// ptxas -v (sm_90a, CUDA 12.8): 252 registers a thread at D = 128 (181 at
+// D = 64), no stack and no spills; the occupancy query
+// (vln_attention_fwd_blocks_per_sm) reports 2 blocks, 8 warps, per SM at
+// both head dims.  The f32 instances: 76 registers, 1 block per SM at
+// D = 128.
+// Left for later: wgmma from shared memory, TMA loads with mbarriers,
+// warp specialisation (a producer warp and consumer warpgroups), a
+// persistent grid.
 //
-// Training.  With dropout enabled the Philox mask of philox.cuh (a pure
-// function of seed, stream b*H + h, query row, key and direction, so the
-// backward kernels of attention_bwd.cu replay it tile by tile) multiplies
+// The f32 instances are the parity route, off the main path: they stage
+// Q, K, V, the scores and the output in shared memory and multiply on the
+// CUDA cores in full f32 (one block per SM).
+//
+// Training.  With dropout enabled the Philox mask of philox.cuh multiplies
 // the unnormalised exp(s - m) that meets V, scaled by 1 / (1 - rate); the
 // running sum l sums the probabilities BEFORE dropout, because the TPU
-// kernel normalises first and drops second (attention.py:54-61).  When
-// the problem carries an lse pointer the kernel writes the f32 row
-// statistic LSE = m + log(l) per query row ([B*H, s_q]) for the backward.
-// With dropout off and no lse pointer (eval) the arithmetic is unchanged.
+// kernel normalises first and drops second (attention.py:54-61).  The
+// bf16 instances draw one Philox call per fragment of 2 rows x 2 keys and
+// use its four words (keep_group); the mask is a pure function of (seed,
+// stream b*H + h, query row, key, direction), so the backward kernels of
+// attention_bwd.cu replay it tile by tile.  When the problem carries an lse
+// pointer the kernel writes the f32 row statistic LSE = m + log(l) per
+// query row ([B*H, s_q]) for the backward.
 //
 // Edges.  Keys past S_kv are excluded with -inf (they never see the
 // -10000 bias); every key tile holds at least one real key, so the running
 // max stays finite.  A row whose real keys all carry -10000 therefore
 // comes out as the same near-uniform softmax the plain version gives.  The
-// key bias is [B, S_kv] f32, indexed by b = bh / H.
+// key bias is [B, S_kv] f32, indexed by b = bh / H.  q, k, v and out are
+// read and written through their strides (last dim contiguous), so the
+// transposed views of split_heads / merge_heads need no copy.
 //
 // C interface (loaded with ctypes by ops/_build.py): vln_attention_fwd
 // returns cudaGetLastError() after the launch.  The kernel allocates
@@ -55,14 +80,12 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include <type_traits>
 
+#include "mma.cuh"
 #include "philox.cuh"
-
-using namespace nvcuda;
 
 // One attention problem (outside the unnamed namespace: the exported C
 // entry point takes it): queries [B, H, s_q, D] over keys/values
@@ -85,150 +108,258 @@ struct Problem {
 
 namespace {
 
+using bf16 = __nv_bfloat16;
+using namespace vln_mma;
+
 constexpr int BM = 64;             // query rows per block
 constexpr int BN = 64;             // keys per key/value tile
 constexpr int WARPS = 4;           // each warp owns 16 query rows
 constexpr int THREADS = WARPS * 32;
+constexpr unsigned FULL = 0xffffffffu;
 
+// ---------------------------------------------------------------------------
+// bf16: registers, mma.sync and a cp.async ring
+// ---------------------------------------------------------------------------
+template <int D>
+struct Ring {
+  static constexpr int RS = row_stride<D>();
+  static constexpr int TILE = BM * RS;  // elements of one staged tile
+  static constexpr int STAGES = 2;
+  // Q, then K and V of each stage, then the key bias of each stage
+  static constexpr int k = TILE;
+  static constexpr int v = k + STAGES * TILE;
+  static constexpr int tiles_bytes = (v + STAGES * TILE) * 2;
+  static constexpr int bytes = tiles_bytes + STAGES * BN * 4;
+};
+
+// key tile j (keys [k0, k0 + 64)) into ring stage s
+template <int D>
+__device__ __forceinline__ void load_kv(const Problem& p, const bf16* k,
+                                        const bf16* v, const float* bias,
+                                        bf16* sring, float* sbias, int k0,
+                                        int s) {
+  using R = Ring<D>;
+  load_rows_async<D, BN, THREADS>(sring + R::k + s * R::TILE, k, p.k_ss, k0,
+                                  p.s_kv);
+  load_rows_async<D, BN, THREADS>(sring + R::v + s * R::TILE, v, p.v_ss, k0,
+                                  p.s_kv);
+  if (threadIdx.x < BN) {
+    const bool ok = k0 + (int)threadIdx.x < p.s_kv;
+    cp_async4(sbias + s * BN + threadIdx.x, bias + (ok ? k0 + threadIdx.x : 0),
+              ok ? 4 : 0);
+  }
+  cp_async_commit();
+}
+
+template <int D>
+__device__ void attend_tile_bf16(const Problem& p, int heads, int bh, int tile,
+                                 float scale, unsigned char* smem) {
+  using R = Ring<D>;
+  constexpr int RS = R::RS;
+  bf16* sQ = reinterpret_cast<bf16*>(smem);
+  float* sbias = reinterpret_cast<float*>(smem + R::tiles_bytes);
+
+  const int b = bh / heads, h = bh % heads;
+  const bf16* q = static_cast<const bf16*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const bf16* k = static_cast<const bf16*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const bf16* v = static_cast<const bf16*>(p.v) + b * p.v_sb + h * p.v_sh;
+  bf16* o = static_cast<bf16*>(p.o) + b * p.o_sb + h * p.o_sh;
+  const float* bias = p.bias + (long long)b * p.s_kv;
+  const int q0 = tile * BM;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int row = q0 + warp * 16 + g;  // the thread's rows: row, row + 8
+  const int n_tiles = (p.s_kv + BN - 1) / BN;
+
+  load_rows_async<D, BM, THREADS>(sQ, q, p.q_ss, q0, p.s_q);
+  load_kv<D>(p, k, v, bias, sQ, sbias, 0, 0);  // commits Q with tile 0
+
+  uint32_t qf[D / 16][4];  // the warp's Q rows as A fragments
+  float acc[D / 8][4];     // 16 x D output, unnormalised
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.0f;
+  float m[2] = {-INFINITY, -INFINITY};  // running max of rows row, row + 8
+  float l[2] = {0.0f, 0.0f};            // this lane's share of the sums
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int k0 = j * BN, st = j & 1;
+    if (j + 1 < n_tiles) {
+      load_kv<D>(p, k, v, bias, sQ, sbias, k0 + BN, st ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (j == 0) {
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        ldsm_x4(qf[kk], sQ + (warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * RS +
+                            kk * 16 + (lane >> 4) * 8);
+    }
+    const bf16* sK = sQ + R::k + st * R::TILE;
+    const bf16* sV = sQ + R::v + st * R::TILE;
+    const float* sb = sbias + st * BN;
+
+    // S = Q K^T: 8 n-tiles of 8 keys
+    float s[BN / 8][4];
+#pragma unroll
+    for (int n = 0; n < BN / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.0f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+#pragma unroll
+      for (int np = 0; np < BN / 16; ++np) {
+        uint32_t kf[4];
+        ldsm_x4(kf, sK + (np * 16 + (lane & 7) + (lane >> 4) * 8) * RS + kk * 16 +
+                        ((lane >> 3) & 1) * 8);
+        mma_bf16(s[2 * np], qf[kk], kf[0], kf[1]);
+        mma_bf16(s[2 * np + 1], qf[kk], kf[2], kf[3]);
+      }
+    }
+
+    // scale, then add the bias, each rounded (no FMA), as the TPU kernel
+    // and the plain version do; keys past s_kv are -inf
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int n = 0; n < BN / 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = n * 8 + 2 * t + e;
+        const float kb = k0 + c < p.s_kv ? sb[c] : -INFINITY;
+        s[n][e] = __fadd_rn(__fmul_rn(s[n][e], scale), kb);
+        s[n][2 + e] = __fadd_rn(__fmul_rn(s[n][2 + e], scale), kb);
+        mx[0] = fmaxf(mx[0], s[n][e]);
+        mx[1] = fmaxf(mx[1], s[n][2 + e]);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(FULL, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(FULL, mx[r], 2));  // finite
+      const float alpha = exp_e(m[r] - mx[r]);  // 0 on the first tile
+      m[r] = mx[r];
+      l[r] *= alpha;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        acc[n][2 * r] *= alpha;
+        acc[n][2 * r + 1] *= alpha;
+      }
+    }
+
+    // P = exp(S - m), summed before dropout; the share that meets V after
+#pragma unroll
+    for (int n = 0; n < BN / 8; ++n) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[n][i] = exp_e(s[n][i] - m[i >> 1]);
+      l[0] += s[n][0] + s[n][1];
+      l[1] += s[n][2] + s[n][3];
+      if (p.dropout.enabled) {
+        // bit i of the group is accumulator element i
+        const uint32_t bits =
+            vln_philox::keep_group(p.dropout, bh, row, k0 + n * 8 + 2 * t);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          s[n][i] = (bits >> i) & 1u ? s[n][i] * p.dropout.keep_scale : 0.0f;
+      }
+    }
+
+    // O += P V: P's k-step kk is n-tiles 2kk and 2kk + 1
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) {
+      const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+      for (int dp = 0; dp < D / 16; ++dp) {
+        uint32_t vf[4];
+        ldsm_x4_t(vf, sV + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * RS +
+                          dp * 16 + (lane >> 4) * 8);
+        mma_bf16(acc[2 * dp], pa, vf[0], vf[1]);
+        mma_bf16(acc[2 * dp + 1], pa, vf[2], vf[3]);
+      }
+    }
+    __syncthreads();  // this stage is consumed before it is refilled
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(FULL, l[r], 1);
+    l[r] += __shfl_xor_sync(FULL, l[r], 2);
+    const int qi = row + 8 * r;
+    if (qi >= p.s_q) continue;
+    const float inv = 1.0f / l[r];
+    bf16* orow = o + (long long)qi * p.o_ss + 2 * t;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(orow + n * 8) =
+          __floats2bfloat162_rn(acc[n][2 * r] * inv, acc[n][2 * r + 1] * inv);
+    if (p.lse != nullptr && t == 0)
+      p.lse[(long long)bh * p.s_q + qi] = m[r] + logf(l[r]);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// f32 (parity): shared-memory tiles, CUDA cores
+// ---------------------------------------------------------------------------
 __host__ __device__ constexpr int align128(int x) { return (x + 127) / 128 * 128; }
 
-template <typename T, int D>
+template <int D>
 struct Layout {
-  static constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
-  static constexpr int KP = D + 16 / sizeof(T);  // q/k/v row stride (16 B pad)
-  static constexpr int SP = BN + 4;              // f32 score row stride
-  static constexpr int PP = BN + 8;              // bf16 probability row stride
-  static constexpr int OP = D + 4;               // f32 output row stride
+  static constexpr int KP = D + 4;   // q/k/v row stride (16 B pad)
+  static constexpr int SP = BN + 4;  // score row stride
+  static constexpr int OP = D + 4;   // output row stride
   static constexpr int q = 0;
-  static constexpr int k = align128(q + BM * KP * (int)sizeof(T));
-  static constexpr int v = align128(k + BN * KP * (int)sizeof(T));
-  static constexpr int s = align128(v + BN * KP * (int)sizeof(T));
-  static constexpr int p = align128(s + BM * SP * 4);
-  static constexpr int o = align128(p + (kBf16 ? BM * PP * 2 : 0));
+  static constexpr int k = align128(q + BM * KP * 4);
+  static constexpr int v = align128(k + BN * KP * 4);
+  static constexpr int s = align128(v + BN * KP * 4);
+  static constexpr int o = align128(s + BM * SP * 4);
   static constexpr int stats = align128(o + BM * OP * 4);
   static constexpr int bytes = stats + 3 * BM * 4;
 };
 
 __device__ __forceinline__ float warp_max(float x) {
-  for (int off = 16; off > 0; off >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
+  for (int off = 16; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(FULL, x, off));
   return x;
 }
 
 __device__ __forceinline__ float warp_sum(float x) {
-  for (int off = 16; off > 0; off >>= 1)
-    x += __shfl_xor_sync(0xffffffffu, x, off);
+  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(FULL, x, off);
   return x;
 }
 
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// rows [row0, row0 + 64) of a [n, D] matrix into shared memory, zero past n
-template <typename T, int D>
-__device__ void load_tile(T* dst, const T* src, long long stride, int row0,
-                          int n) {
-  constexpr int VEC = 16 / sizeof(T);
-  constexpr int CHUNKS = D / VEC;
+// rows [row0, row0 + 64) of a [n, D] f32 matrix into shared memory, zero past n
+template <int D>
+__device__ void load_tile_f32(float* dst, const float* src, long long stride,
+                              int row0, int n) {
+  constexpr int CHUNKS = D / 4;
   for (int i = threadIdx.x; i < BM * CHUNKS; i += THREADS) {
     const int r = i / CHUNKS, c = i % CHUNKS;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    float4 val = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     if (row0 + r < n)
-      val = *reinterpret_cast<const uint4*>(src + (row0 + r) * stride + c * VEC);
-    *reinterpret_cast<uint4*>(dst + r * Layout<T, D>::KP + c * VEC) = val;
+      val = *reinterpret_cast<const float4*>(src + (row0 + r) * stride + c * 4);
+    *reinterpret_cast<float4*>(dst + r * Layout<D>::KP + c * 4) = val;
   }
 }
 
-// raw scores of the warp's 16 rows: sS[r0:r0+16, 0:64] = Q K^T
-template <typename T, int D>
-__device__ void tile_scores(const T* sQ, const T* sK, float* sS, int r0,
-                            int lane) {
-  using Lay = Layout<T, D>;
-  if constexpr (Lay::kBf16) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-    wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> b;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    for (int j = 0; j < BN / 16; ++j) {
-      wmma::fill_fragment(acc, 0.0f);
-      for (int kk = 0; kk < D / 16; ++kk) {
-        wmma::load_matrix_sync(a, sQ + r0 * Lay::KP + kk * 16, Lay::KP);
-        // K stored row-major [key][d] is K^T in column-major order
-        wmma::load_matrix_sync(b, sK + j * 16 * Lay::KP + kk * 16, Lay::KP);
-        wmma::mma_sync(acc, a, b, acc);
-      }
-      wmma::store_matrix_sync(sS + r0 * Lay::SP + j * 16, acc, Lay::SP,
-                              wmma::mem_row_major);
-    }
-  } else {
-    for (int r = 0; r < 16; ++r) {
-      const float* qr = sQ + (r0 + r) * Lay::KP;
-      for (int c = lane; c < BN; c += 32) {
-        const float* kr = sK + c * Lay::KP;
-        float acc = 0.0f;
-        for (int d = 0; d < D; ++d) acc = fmaf(qr[d], kr[d], acc);
-        sS[(r0 + r) * Lay::SP + c] = acc;
-      }
-    }
-  }
-}
-
-// sO[r0:r0+16, :] += P V for the warp's 16 rows
-template <typename T, int D>
-__device__ void tile_pv(const float* sS, const __nv_bfloat16* sP, const T* sV,
-                        float* sO, int r0, int lane) {
-  using Lay = Layout<T, D>;
-  if constexpr (Lay::kBf16) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-    wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    for (int nb = 0; nb < D / 16; ++nb) {
-      float* out = sO + r0 * Lay::OP + nb * 16;
-      wmma::load_matrix_sync(acc, out, Lay::OP, wmma::mem_row_major);
-      for (int kk = 0; kk < BN / 16; ++kk) {
-        wmma::load_matrix_sync(a, sP + r0 * Lay::PP + kk * 16, Lay::PP);
-        wmma::load_matrix_sync(b, sV + kk * 16 * Lay::KP + nb * 16, Lay::KP);
-        wmma::mma_sync(acc, a, b, acc);
-      }
-      wmma::store_matrix_sync(out, acc, Lay::OP, wmma::mem_row_major);
-    }
-  } else {
-    for (int r = 0; r < 16; ++r) {
-      const float* pr = sS + (r0 + r) * Lay::SP;
-      for (int c = lane; c < D; c += 32) {
-        float acc = sO[(r0 + r) * Lay::OP + c];
-        for (int kk = 0; kk < BN; ++kk)
-          acc = fmaf(pr[kk], sV[kk * Lay::KP + c], acc);
-        sO[(r0 + r) * Lay::OP + c] = acc;
-      }
-    }
-  }
-}
-
-template <typename T, int D>
-__device__ void attend_tile(const Problem& p, int heads, int bh, int tile,
-                            float scale, unsigned char* smem) {
-  using Lay = Layout<T, D>;
-  T* sQ = reinterpret_cast<T*>(smem + Lay::q);
-  T* sK = reinterpret_cast<T*>(smem + Lay::k);
-  T* sV = reinterpret_cast<T*>(smem + Lay::v);
+template <int D>
+__device__ void attend_tile_f32(const Problem& p, int heads, int bh, int tile,
+                                float scale, unsigned char* smem) {
+  using Lay = Layout<D>;
+  float* sQ = reinterpret_cast<float*>(smem + Lay::q);
+  float* sK = reinterpret_cast<float*>(smem + Lay::k);
+  float* sV = reinterpret_cast<float*>(smem + Lay::v);
   float* sS = reinterpret_cast<float*>(smem + Lay::s);
-  __nv_bfloat16* sP = reinterpret_cast<__nv_bfloat16*>(smem + Lay::p);
   float* sO = reinterpret_cast<float*>(smem + Lay::o);
   float* sM = reinterpret_cast<float*>(smem + Lay::stats);  // running max
   float* sL = sM + BM;                                       // running sum
   float* sA = sL + BM;                                       // rescale factor
 
   const int b = bh / heads, h = bh % heads;
-  const T* q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const T* k = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const T* v = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
-  T* o = static_cast<T*>(p.o) + b * p.o_sb + h * p.o_sh;
+  const float* q = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const float* k = static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const float* v = static_cast<const float*>(p.v) + b * p.v_sb + h * p.v_sh;
+  float* o = static_cast<float*>(p.o) + b * p.o_sb + h * p.o_sh;
   const float* bias = p.bias + (long long)b * p.s_kv;
   const int q0 = tile * BM;
   const int lane = threadIdx.x % 32;
@@ -239,14 +370,22 @@ __device__ void attend_tile(const Problem& p, int heads, int bh, int tile,
     sM[r0 + lane] = -INFINITY;
     sL[r0 + lane] = 0.0f;
   }
-  load_tile<T, D>(sQ, q, p.q_ss, q0, p.s_q);
+  load_tile_f32<D>(sQ, q, p.q_ss, q0, p.s_q);
 
   for (int k0 = 0; k0 < p.s_kv; k0 += BN) {
     __syncthreads();  // the previous tile's K/V are consumed; Q is loaded
-    load_tile<T, D>(sK, k, p.k_ss, k0, p.s_kv);
-    load_tile<T, D>(sV, v, p.v_ss, k0, p.s_kv);
+    load_tile_f32<D>(sK, k, p.k_ss, k0, p.s_kv);
+    load_tile_f32<D>(sV, v, p.v_ss, k0, p.s_kv);
     __syncthreads();
-    tile_scores<T, D>(sQ, sK, sS, r0, lane);
+    for (int r = 0; r < 16; ++r) {  // raw scores of the warp's rows
+      const float* qr = sQ + (r0 + r) * Lay::KP;
+      for (int c = lane; c < BN; c += 32) {
+        const float* kr = sK + c * Lay::KP;
+        float a = 0.0f;
+        for (int d = 0; d < D; ++d) a = fmaf(qr[d], kr[d], a);
+        sS[(r0 + r) * Lay::SP + c] = a;
+      }
+    }
     __syncwarp();
 
     const int n_valid = min(BN, p.s_kv - k0);
@@ -256,8 +395,7 @@ __device__ void attend_tile(const Problem& p, int heads, int bh, int tile,
       float mx = -INFINITY;
       for (int j = 0; j < BN / 32; ++j) {
         const int c = lane + 32 * j;
-        // scale, then add the bias, each rounded (no FMA), as the TPU
-        // kernel and the plain version do
+        // scale, then add the bias, each rounded (no FMA)
         x[j] = c < n_valid
                    ? __fadd_rn(__fmul_rn(sS[row * Lay::SP + c], scale), bias[k0 + c])
                    : -INFINITY;
@@ -274,10 +412,7 @@ __device__ void attend_tile(const Problem& p, int heads, int bh, int tile,
           pe = vln_philox::keep(p.dropout, bh, q0 + row, k0 + c)
                    ? e * p.dropout.keep_scale
                    : 0.0f;
-        if constexpr (Lay::kBf16)
-          sP[row * Lay::PP + c] = __float2bfloat16(pe);
-        else
-          sS[row * Lay::SP + c] = pe;
+        sS[row * Lay::SP + c] = pe;
         sum += e;
       }
       sum = warp_sum(sum);
@@ -295,46 +430,89 @@ __device__ void attend_tile(const Problem& p, int heads, int bh, int tile,
       sO[row * Lay::OP + i % D] *= sA[row];
     }
     __syncwarp();
-    tile_pv<T, D>(sS, sP, sV, sO, r0, lane);
+    for (int r = 0; r < 16; ++r) {  // sO += P V for the warp's rows
+      const float* pr = sS + (r0 + r) * Lay::SP;
+      for (int c = lane; c < D; c += 32) {
+        float a = sO[(r0 + r) * Lay::OP + c];
+        for (int kk = 0; kk < BN; ++kk) a = fmaf(pr[kk], sV[kk * Lay::KP + c], a);
+        sO[(r0 + r) * Lay::OP + c] = a;
+      }
+    }
     __syncwarp();
   }
 
   for (int i = lane; i < 16 * D; i += 32) {
     const int row = r0 + i / D, c = i % D;
-    if (q0 + row < p.s_q)
-      o[(q0 + row) * p.o_ss + c] = from_float<T>(sO[row * Lay::OP + c] / sL[row]);
+    if (q0 + row < p.s_q) o[(q0 + row) * p.o_ss + c] = sO[row * Lay::OP + c] / sL[row];
   }
   if (p.lse != nullptr && lane < 16 && q0 + r0 + lane < p.s_q)
-    p.lse[(long long)bh * p.s_q + q0 + r0 + lane] =
-        sM[r0 + lane] + logf(sL[r0 + lane]);
+    p.lse[(long long)bh * p.s_q + q0 + r0 + lane] = sM[r0 + lane] + logf(sL[r0 + lane]);
 }
 
+// ---------------------------------------------------------------------------
+// kernel and launch
+// ---------------------------------------------------------------------------
+template <typename T>
+constexpr bool kBf16 = std::is_same<T, bf16>::value;
+
 template <typename T, int D>
-__global__ void __launch_bounds__(THREADS)
+constexpr int kSmemBytes = kBf16<T> ? Ring<D>::bytes : Layout<D>::bytes;
+
+template <typename T, int D>
+__device__ __forceinline__ void attend(const Problem& p, int heads, int bh,
+                                       int tile, float scale,
+                                       unsigned char* smem) {
+  if constexpr (kBf16<T>)
+    attend_tile_bf16<D>(p, heads, bh, tile, scale, smem);
+  else
+    attend_tile_f32<D>(p, heads, bh, tile, scale, smem);
+}
+
+// bf16: two blocks per SM (registers capped at 255 a thread)
+template <typename T, int D>
+__global__ void __launch_bounds__(THREADS, kBf16<T> ? 2 : 1)
 attention_fwd_kernel(Problem p0, Problem p1, int tiles0, int heads,
                      float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
   // block-uniform branch: the first tiles0 query tiles belong to problem 0
   if ((int)blockIdx.x < tiles0)
-    attend_tile<T, D>(p0, heads, blockIdx.y, blockIdx.x, scale, smem);
+    attend<T, D>(p0, heads, blockIdx.y, blockIdx.x, scale, smem);
   else
-    attend_tile<T, D>(p1, heads, blockIdx.y, blockIdx.x - tiles0, scale, smem);
+    attend<T, D>(p1, heads, blockIdx.y, blockIdx.x - tiles0, scale, smem);
+}
+
+template <typename T, int D>
+cudaError_t configure() {
+  cudaError_t err = cudaFuncSetAttribute(
+      attention_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kSmemBytes<T, D>);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(attention_fwd_kernel<T, D>,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              cudaSharedmemCarveoutMaxShared);
 }
 
 template <typename T, int D>
 cudaError_t launch(const Problem& p0, const Problem& p1, int batch, int heads,
                    cudaStream_t stream) {
-  const int bytes = Layout<T, D>::bytes;
-  cudaError_t err = cudaFuncSetAttribute(
-      attention_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      bytes);
+  cudaError_t err = configure<T, D>();
   if (err != cudaSuccess) return err;
   const int tiles0 = (p0.s_q + BM - 1) / BM;
   const int tiles1 = (p1.s_q + BM - 1) / BM;
   const dim3 grid(tiles0 + tiles1, batch * heads);
-  attention_fwd_kernel<T, D><<<grid, THREADS, bytes, stream>>>(
+  attention_fwd_kernel<T, D><<<grid, THREADS, kSmemBytes<T, D>, stream>>>(
       p0, p1, tiles0, heads, 1.0f / sqrtf((float)D));
   return cudaGetLastError();
+}
+
+template <typename T, int D>
+int blocks_per_sm() {
+  int n = -1;
+  if (configure<T, D>() != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &n, attention_fwd_kernel<T, D>, THREADS, kSmemBytes<T, D>) != cudaSuccess)
+    return -1;
+  return n;
 }
 
 }  // namespace
@@ -348,12 +526,32 @@ extern "C" int vln_attention_fwd(const Problem* p0, const Problem* p1,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
   if (is_bf16 && head_dim == 128)
-    err = launch<__nv_bfloat16, 128>(*p0, *p1, batch, heads, s);
+    err = launch<bf16, 128>(*p0, *p1, batch, heads, s);
   else if (is_bf16 && head_dim == 64)
-    err = launch<__nv_bfloat16, 64>(*p0, *p1, batch, heads, s);
+    err = launch<bf16, 64>(*p0, *p1, batch, heads, s);
   else if (!is_bf16 && head_dim == 128)
     err = launch<float, 128>(*p0, *p1, batch, heads, s);
   else if (!is_bf16 && head_dim == 64)
     err = launch<float, 64>(*p0, *p1, batch, heads, s);
   return static_cast<int>(err);
+}
+
+// Blocks of the kernel instance that fit on one SM (occupancy query), or
+// -1 for an instance that does not exist or a failed query.
+extern "C" int vln_attention_fwd_blocks_per_sm(int head_dim, int is_bf16) {
+  if (is_bf16 && head_dim == 128) return blocks_per_sm<bf16, 128>();
+  if (is_bf16 && head_dim == 64) return blocks_per_sm<bf16, 64>();
+  if (!is_bf16 && head_dim == 128) return blocks_per_sm<float, 128>();
+  if (!is_bf16 && head_dim == 64) return blocks_per_sm<float, 64>();
+  return -1;
+}
+
+// Dynamic shared memory of one block of the kernel instance in bytes, or
+// -1 for an instance that does not exist.
+extern "C" int vln_attention_fwd_smem_bytes(int head_dim, int is_bf16) {
+  if (is_bf16 && head_dim == 128) return kSmemBytes<bf16, 128>;
+  if (is_bf16 && head_dim == 64) return kSmemBytes<bf16, 64>;
+  if (!is_bf16 && head_dim == 128) return kSmemBytes<float, 128>;
+  if (!is_bf16 && head_dim == 64) return kSmemBytes<float, 64>;
+  return -1;
 }

@@ -1,11 +1,22 @@
 // Philox4x32-10 dropout bits of the attention and epilogue kernels
 // (Hopper, sm_90a).
 //
-// Attention (attention_fwd.cu, attention_bwd.cu): keep(seed, stream, i, j,
-// direction) is word 0 of Philox4x32-10 with counter (i, j, stream,
-// direction) and key (seed_lo, seed_hi), kept when it is at least the
-// threshold rate * 2^32.  The forward and backward kernels, which tile
-// differently, recompute the same bit for every (row, key).
+// Attention (attention_fwd.cu, attention_bwd.cu): one Philox4x32-10 call
+// serves a 2 x 2 group of (query row, key) entries, and all four of its
+// words are used.  The group of (i, j) holds rows {i0, i0 + 8} and keys
+// {j0, j0 + 1}, with i0 = i with bit 3 cleared and j0 = j with bit 0
+// cleared; its counter is
+//   (c0, c1, c2, c3) = ((i >> 4) * 8 + (i & 7), j >> 1, stream, direction)
+// under the key (seed_lo, seed_hi), and (i, j) reads word
+// 2 * ((i >> 3) & 1) + (j & 1): x (i0, j0), y (i0, j0 + 1), z (i0 + 8, j0),
+// w (i0 + 8, j0 + 1).  The entry is kept when its word is at least the
+// threshold rate * 2^32.  The group is exactly what one thread holds of an
+// m16n8 mma.sync accumulator (rows {r, r + 8} x keys {2c, 2c + 1}), so the
+// bf16 forward and the dQ pass draw one call per fragment; the dK/dV pass
+// computes the transposed scores and permutes its rows through ldmatrix
+// so that its fragments hold the same groups (attention_bwd.cu).  The bit
+// is a pure function of (seed, stream, i, j, direction): every tile of the
+// forward and of both backward passes recomputes the same mask.
 //
 // Epilogue (epilogue.cu): element (row, col) of an [N, D] input is kept
 // when word (col % 4) of Philox4x32-10 with counter (row, col / 4, 0,
@@ -41,12 +52,6 @@ __device__ __forceinline__ uint4 philox4(uint32_t c0, uint32_t c1,
   return make_uint4(c0, c1, c2, c3);
 }
 
-__device__ __forceinline__ uint32_t word0(uint32_t c0, uint32_t c1,
-                                          uint32_t c2, uint32_t c3,
-                                          uint32_t k0, uint32_t k1) {
-  return philox4(c0, c1, c2, c3, k0, k1).x;
-}
-
 // The dropout settings of one attention problem or epilogue call.
 struct Dropout {
   uint32_t seed_lo, seed_hi;
@@ -57,20 +62,32 @@ struct Dropout {
   int enabled;
 };
 
+// bit k set when word k of w is at least the threshold
+__device__ __forceinline__ uint32_t kept4(uint4 w, uint32_t threshold) {
+  return (uint32_t)(w.x >= threshold) | ((uint32_t)(w.y >= threshold) << 1) |
+         ((uint32_t)(w.z >= threshold) << 2) | ((uint32_t)(w.w >= threshold) << 3);
+}
+
+// Keep bits of the attention group holding (i, j): bit 0 (i0, j0), bit 1
+// (i0, j0 + 1), bit 2 (i0 + 8, j0), bit 3 (i0 + 8, j0 + 1).
+__device__ __forceinline__ uint32_t keep_group(const Dropout& d, uint32_t stream,
+                                               uint32_t i, uint32_t j) {
+  return kept4(philox4(((i >> 4) << 3) | (i & 7u), j >> 1, stream,
+                       d.direction, d.seed_lo, d.seed_hi), d.threshold);
+}
+
+// The keep bit of one attention entry (the f32 parity kernels).
 __device__ __forceinline__ bool keep(const Dropout& d, uint32_t stream,
                                      uint32_t i, uint32_t j) {
-  return word0(i, j, stream, d.direction, d.seed_lo, d.seed_hi) >= d.threshold;
+  return (keep_group(d, stream, i, j) >> (((i >> 2) & 2u) | (j & 1u))) & 1u;
 }
 
 // Keep bits of columns 4*group .. 4*group + 3 of row ``row`` (epilogue),
 // bit c for column 4*group + c.
 __device__ __forceinline__ uint32_t keep4(const Dropout& d, uint32_t row,
                                           uint32_t group) {
-  const uint4 w = philox4(row, group, 0u, EPILOGUE_DIRECTION, d.seed_lo,
-                          d.seed_hi);
-  return (uint32_t)(w.x >= d.threshold) | ((uint32_t)(w.y >= d.threshold) << 1) |
-         ((uint32_t)(w.z >= d.threshold) << 2) |
-         ((uint32_t)(w.w >= d.threshold) << 3);
+  return kept4(philox4(row, group, 0u, EPILOGUE_DIRECTION, d.seed_lo,
+                       d.seed_hi), d.threshold);
 }
 
 }  // namespace vln_philox

@@ -5,18 +5,24 @@ easy as 1, 2, 3", SC'11; the Random123 constants).
 The TPU kernels draw their masks in program order from a per-(batch, head)
 seed (``youtube_vln_tpu/ops/attention.py:40-45, 56-59``).  The CUDA kernels
 tile the forward and the backward differently, so the mask is instead a
-pure function of its coordinates:
+pure function of its coordinates, and one Philox call serves a 2 x 2 group
+of entries, all four of its words used:
 
     keep(seed, stream, i, j, direction) =
-        philox4x32_10(counter=(i, j, stream, direction),
-                      key=(seed_lo, seed_hi))[0] >= threshold(rate)
+        philox4x32_10(counter=((i >> 4) * 8 + (i & 7), j >> 1, stream,
+                               direction),
+                      key=(seed_lo, seed_hi))[2 * ((i >> 3) & 1) + (j & 1)]
+        >= threshold(rate)
 
 with ``stream`` the global row id b*H + h, ``i`` the query row, ``j`` the
 key, and ``direction`` 0 for B1 and for B2's text->vision direction, 1 for
-B2's vision->text direction.  A probability is kept when its draw is at
-least rate * 2^32 (``attention.py:44-45``); kept values scale by
-1 / (1 - rate).  ``csrc/philox.cuh`` computes the same function on the
-card, so a kernel and its plain version drop the same entries.
+B2's vision->text direction.  The group of (i, j) is rows {i0, i0 + 8} x
+keys {j0, j0 + 1} (i0: i with bit 3 cleared, j0: j with bit 0 cleared):
+what one thread holds of an m16n8 ``mma.sync`` accumulator, so the kernels
+draw one call per fragment (``csrc/philox.cuh``).  A probability is kept
+when its draw is at least rate * 2^32 (``attention.py:44-45``); kept values
+scale by 1 / (1 - rate).  ``csrc/philox.cuh`` computes the same function
+on the card, so a kernel and its plain version drop the same entries.
 
 The epilogue kernels B5/B6 (``ops/epilogue.py``) drop elements of an
 [N, D] input, and one Philox call serves four neighbouring columns:
@@ -97,21 +103,35 @@ def site_seed(base: int, site: int) -> int:
 
 
 def dropout_keep(seed: int, rate: float, batch: int, heads: int, s_q: int,
-                 s_kv: int, direction: int = 0, device=None) -> torch.Tensor:
-    """The keep mask [batch, heads, s_q, s_kv] (bool) of one attention call,
-    bit for bit the mask its kernel draws."""
+                 s_kv: int, direction: int = 0, device=None, q0: int = 0,
+                 k0: int = 0) -> torch.Tensor:
+    """The keep mask [batch, heads, s_q, s_kv] (bool) of query rows
+    [q0, q0 + s_q) and keys [k0, k0 + s_kv) of one attention call, bit for
+    bit the mask its kernel draws.  One Philox call per 2 x 2 group, as on
+    the card."""
     key = seed_key(seed)
     thresh = keep_threshold(rate)
-    i = torch.arange(s_q, dtype=torch.int64, device=device)[:, None]
-    j = torch.arange(s_kv, dtype=torch.int64, device=device)[None, :]
+    i = torch.arange(q0, q0 + s_q, dtype=torch.int64, device=device)
+    j = torch.arange(k0, k0 + s_kv, dtype=torch.int64, device=device)
+    # the groups' counters span whole ranges: rows of a 16-row block share
+    # the 8 counters of that block, and key pairs share one counter
+    grow = ((i >> 4) << 3) | (i & 7)
+    g0, c0 = int(grow.min()), int(j[0]) >> 1
+    rows = torch.arange(g0, int(grow.max()) + 1, dtype=torch.int64,
+                        device=device)[:, None]
+    cols = torch.arange(c0, (int(j[-1]) >> 1) + 1, dtype=torch.int64,
+                        device=device)[None, :]
+    gi, cj = (grow - g0)[:, None], ((j >> 1) - c0)[None, :]
+    word = ((i >> 3) & 1)[:, None] * 2 + (j & 1)[None, :]
     out = torch.empty(batch * heads, s_q, s_kv, dtype=torch.bool,
                       device=device)
-    step = max(1, _CHUNK // max(1, s_q * s_kv))
+    step = max(1, _CHUNK // max(1, 4 * rows.shape[0] * cols.shape[1]))
     for r0 in range(0, batch * heads, step):
         stream = torch.arange(r0, min(r0 + step, batch * heads),
                               dtype=torch.int64, device=device)[:, None, None]
-        word = philox4x32(i, j, stream, direction, key)[0]
-        out[r0:r0 + step] = word >= thresh
+        words = torch.stack(philox4x32(rows, cols, stream, direction, key),
+                            dim=-1) >= thresh
+        out[r0:r0 + step] = words[:, gi, cj, word]
     return out.view(batch, heads, s_q, s_kv)
 
 
