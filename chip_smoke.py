@@ -8,8 +8,9 @@ Phases, each fatal on failure:
   2. the build of every CUDA kernel from ``youtube_vln_tpu_torch/ops/csrc``
      (one nvcc per source, all at once, ``-Xptxas -v``): registers, stack
      and spills of every kernel instance, fatal on a spill in a bf16
-     D = 128 instance; the blocks per SM of B1-B4 (at least 2 in bf16 at
-     D = 128);
+     D = 128 instance of B1-B4 or in B6's bf16 instance (D up to 1024);
+     the blocks per SM of B1-B4 (at least 2 in bf16 at D = 128) and B6's
+     layout (at least 2 resident blocks, 32 warps, per SM in bf16);
   3. the forward kernels B1/B2 against their plain PyTorch versions at the
      beam-eval shapes and at odd lengths, in bf16 and f32; then B1-B4 at
      the edges of the kernels' tiling: B*H = 1, S_q and S_kv of 1, 17 and
@@ -37,7 +38,8 @@ Phases, each fatal on failure:
   9. B5/B6, the fused dropout + residual + LayerNorm epilogue, against
      their plain versions at the pretraining shape (45,248 x 1024), at
      5,760 x 768 and at an odd row count, bf16 and f32, dropout 0 and 0.1:
-     out, dh, dres, dw and db (same Philox masks);
+     out, dh, dres, dw and db (same Philox masks), dh 0 wherever B5
+     dropped, and a second B6 launch on the same inputs bitwise equal;
  10. the pretraining path: a YTb fixture at flagship geometry (16 videos
      x 24 frames x 101 boxes) written by the port's ``build_ytb_fixture``,
      the port's ``YTbDataset`` (MLM + MVM masking, sparse targets,
@@ -57,7 +59,7 @@ Phases, each fatal on failure:
      fine-tuning and the pretraining path, error, time, bound, plain time
      and a library call's time at the train shapes (B1/B2 also at the eval
      shapes, B5/B6 at the pretraining shape); B1-B4 also carry the bf16
-     D = 128 registers and blocks per SM.
+     D = 128 registers and blocks per SM, B6 those of its bf16 instance.
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or without the package beside it, the script exits non-zero.
 """
@@ -92,6 +94,8 @@ PRE_TIMED = 5
 PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
+# B6's bf16 occupancy that the source note of csrc/epilogue.cu states
+B6_BLOCKS_PER_SM, B6_WARPS_PER_SM = 2, 32
 # kernel vs plain version: max abs error over max(1, max |plain|).  bf16:
 # 1e-2, about two and a half bf16 ulps (8 significant bits) at the largest
 # output.  f32: 1e-3, set by the rows of a padded candidate, where every key
@@ -225,12 +229,15 @@ def kernel_instance(mangled):
 def build_kernels():
     """Phase 2: every kernel built from ``ops/csrc`` with ``-Xptxas -v``
     (one nvcc per source, all at once): registers, stack and spills per
-    instance, fatal on any spill in a bf16 D = 128 instance; then the
-    blocks per SM of the B1-B4 instances (occupancy query).  Returns the
-    bf16 D = 128 numbers of B1-B4 by kernels-line name."""
+    instance, fatal on any spill in a bf16 D = 128 instance of B1-B4 or in
+    B6's bf16 instance; then the blocks per SM of the B1-B4 instances and
+    B6's layout (occupancy query).  Returns the bf16 numbers of B1-B4 (D =
+    128) and B6 by kernels-line name."""
     import ctypes
 
+    import torch
     from youtube_vln_tpu_torch.ops import _build
+    from youtube_vln_tpu_torch.ops import epilogue as E
     t0 = time.perf_counter()
     logs = _build.build_all(verbose=True)
     print(f"build: {', '.join(logs)} in {time.perf_counter() - t0:.1f} s")
@@ -241,9 +248,9 @@ def build_kernels():
             print(f"  ptxas {source}: {name} <{dtype}, {d}>: {f.get('registers')} "
                   f"registers, {f.get('stack')} B stack, {f.get('spill_stores')} B "
                   f"spill stores, {f.get('spill_loads')} B spill loads")
-            if dtype == "bf16" and d == 128:
+            if dtype == "bf16" and (d == 128 or name == "epilogue_bwd_kernel"):
                 if f.get("spill_stores") or f.get("spill_loads"):
-                    fail(f"{name} <bf16, 128> spills: {f}")
+                    fail(f"{name} <bf16, {d or 1024}> spills: {f}")
                 regs[name] = f.get("registers")
     occupancy = {}
     for source, kernel, names in (
@@ -264,6 +271,19 @@ def build_kernels():
             occupancy[n] = {"registers": regs.get(kernel),
                             "smem_bytes": smem["bf16 D=128"],
                             "blocks_per_sm": blocks["bf16 D=128"]}
+    # B6: one wave of the resident blocks; the source note of epilogue.cu
+    # states 2 blocks of 512 threads (32 warps) per SM in bf16
+    layouts = {dt: E._bwd_layout(dt == "bf16", torch.cuda.current_device())
+               for dt in ("bf16", "f32")}
+    print(f"  layout, epilogue_bwd_kernel: {layouts}")
+    lay = layouts["bf16"]
+    warps = lay["blocks_per_sm"] * lay["threads"] // 32
+    if lay["blocks_per_sm"] < B6_BLOCKS_PER_SM or warps < B6_WARPS_PER_SM:
+        fail(f"epilogue_bwd_kernel <bf16>: {lay['blocks_per_sm']} blocks ({warps} warps) "
+             f"per SM, the design states {B6_BLOCKS_PER_SM} ({B6_WARPS_PER_SM} warps)")
+    occupancy["epilogue_bwd"] = {"registers": regs.get("epilogue_bwd_kernel"),
+                                 "smem_bytes": lay["smem_bytes"],
+                                 "blocks_per_sm": lay["blocks_per_sm"], "warps_per_sm": warps}
     return occupancy
 
 
@@ -1043,8 +1063,9 @@ def path_gradient_check(model, cfg, args, batch):
 
 
 def epilogue_kernel_checks(seed):
-    """Phase 9: B5/B6 against their plain versions (same Philox masks);
-    returns the numbers of the kernels line at the pretraining shape."""
+    """Phase 9: B5/B6 against their plain versions (same Philox masks), B6
+    launched twice bitwise equal; returns the numbers of the kernels line at
+    the pretraining shape."""
     import torch
     import torch.nn.functional as F
     from youtube_vln_tpu_torch.ops import epilogue as E
@@ -1076,16 +1097,20 @@ def epilogue_kernel_checks(seed):
             keep = E._keep(h, rate, drop_seed)
             if not bool((got[0][~keep] == 0).all()):
                 fail(f"B6 {tag}: dh is not 0 where B5 dropped")
+        again = E._epilogue_bwd(*ops, do, rate, drop_seed)
+        if not all(torch.equal(a, g) for a, g in zip(again, got)):
+            fail(f"B6 {tag}: a second launch on the same inputs differs")
         if (dtype, rate) != (bf16, RATE) or n != n_main:
             continue
         # the main path's shape: time B5/B6, the plain versions and the
-        # library's LayerNorm (no dropout: F.layer_norm of the summed input)
+        # library's LayerNorm (no dropout: F.layer_norm of the summed input,
+        # and its backward as the one ATen call autograd makes, so that no
+        # autograd host work stands between the launches)
         y = h + res
         wl, bl = w.to(dtype), b.to(dtype)
         fwd_bound = bound_ms(10 * n * d, nbytes(h, res, out, w, b), PEAK_F32_FLOPS)
         bwd_bound = bound_ms(20 * n * d, nbytes(h, res, do, w, *got), PEAK_F32_FLOPS)
-        leaves = [x.detach().clone().requires_grad_() for x in (y, wl, bl)]
-        lib_out = F.layer_norm(leaves[0], (d,), leaves[1], leaves[2], 1e-12)
+        _, mean, rstd = torch.ops.aten.native_layer_norm(y, (d,), wl, bl, 1e-12)
         rows["epilogue_fwd"] = dict(
             name="epilogue_fwd", route="cuda",
             source="youtube_vln_tpu_torch/ops/csrc/epilogue.cu",
@@ -1105,11 +1130,12 @@ def epilogue_kernel_checks(seed):
             plain_ms=cuda_ms(lambda: E.epilogue_bwd_reference(h, res, w, do, rate,
                                                               drop_seed), iters=5),
             bound_ms=bwd_bound[0], bound_by=bwd_bound[1],
-            library_ms=cuda_ms(lambda: torch.autograd.grad(lib_out, leaves, do,
-                                                           retain_graph=True)),
-            library="autograd backward of that F.layer_norm (LN only, no dropout)",
+            library_ms=cuda_ms(lambda: torch.ops.aten.native_layer_norm_backward(
+                do, y, (d,), mean, rstd, wl, bl, (True, True, True))),
+            library="aten native_layer_norm_backward of that F.layer_norm (LN only, "
+                    "no dropout): dx, dw, db",
             shape=f"[{n}, {d}] bf16, dropout {rate}")
-        del leaves, lib_out, y
+        del y, mean, rstd
     torch.cuda.empty_cache()
     return rows
 

@@ -1,24 +1,28 @@
 #!/usr/bin/env python3
-"""Device time of the attention kernels B1-B4 of one checkout of this
-repository on one CUDA card, for comparing two checkouts.
+"""Device time of the kernels B1-B6 of one checkout of this repository on
+one CUDA card, for comparing two checkouts.
 
     python3 kernel_timing.py [--tree DIR]
 
 DIR is a checkout (default: the one holding this script), for example an
 earlier commit unpacked with ``git archive`` into an ignored directory.
 The script builds DIR's kernels (into DIR's ``build/kernels``) and times
-DIR's launchers in ``youtube_vln_tpu_torch/ops/attention.py`` at the
-shapes of ``chip_smoke.py``, bf16, D = 128, inputs from seed 0 laid out as
-the model makes them (split_heads views, a key bias with ~10% of the keys
-at -10000 and one fully masked row):
+DIR's launchers in ``youtube_vln_tpu_torch/ops/attention.py`` and
+``ops/epilogue.py`` at the shapes of ``chip_smoke.py``, inputs from seed 0:
 
-  * eval: B1 over [30, 8, 808, 808] and B2 over 60 <-> 808, no dropout;
+  * eval: B1 over [30, 8, 808, 808] and B2 over 60 <-> 808, no dropout,
+    bf16, D = 128, laid out as the model makes them (split_heads views, a
+    key bias with ~10% of the keys at -10000 and one fully masked row);
   * train: B1 with the LSE output, B3, B2 with the LSE outputs and B4 at
-    B*H = 96 x 8, dropout 0.1.
+    B*H = 96 x 8, dropout 0.1;
+  * pretrain: B5 and B6 at the vision epilogue sites of a pretraining
+    step, [45,248, 1024] bf16, dropout 0.1.
 
 Each time is the mean of 20 launches after 3 warm-up launches, between
-two CUDA events.  It prints one JSON line: the tree, the card's name and
-power limit, and ms per launch by kernel.  Times vary by several percent
+two CUDA events; B5 comes with a ``torch.add`` moving its bytes (a
+memory-rate yardstick) and B6 also runs without dropout (no Philox
+draws).  It prints one JSON line: the tree, the card's name and power
+limit, and ms per launch by kernel.  Times vary by several percent
 between calls: compare two trees within one call, in the order A, B, B, A.
 """
 from __future__ import annotations
@@ -30,11 +34,12 @@ import sys
 from pathlib import Path
 
 # this checkout's harness, whatever tree is timed
-from chip_smoke import (HEADS, NC, RATE, S_T, TRAIN_B, TRAIN_NC, cuda_ms, heads_view,
-                        key_bias)
+from chip_smoke import (BOXES, HEADS, L, NC, PRE_B, PRE_NC, RATE, S_T, TRAIN_B, TRAIN_NC,
+                        cuda_ms, heads_view, key_bias)
 
 S_V, D, SEED = 808, 128, 0x5EED
 ROWS = TRAIN_B * TRAIN_NC  # trajectories of one fine-tuning step
+EPI_ROWS, EPI_D = PRE_B * PRE_NC * L * BOXES, 1024  # vision rows of a pretraining step
 
 
 def main() -> int:
@@ -47,6 +52,7 @@ def main() -> int:
         sys.exit("kernel_timing: no CUDA device")
     sys.path.insert(0, str(args.tree.resolve()))
     from youtube_vln_tpu_torch.ops import attention as A
+    from youtube_vln_tpu_torch.ops import epilogue as E
 
     gen = torch.Generator(device="cuda").manual_seed(0)
 
@@ -57,8 +63,8 @@ def main() -> int:
         return key_bias(gen, b, s)
 
     ms = {}
-    # eval: no autograd, no dropout, no LSE
     with torch.no_grad():
+        # eval: no autograd, no dropout, no LSE
         q, k, v = (operand(NC, S_V) for _ in range(3))
         kb = bias(NC, S_V)
         ms["B1 eval"] = cuda_ms(lambda: A.fused_attention(q, k, v, kb))
@@ -85,6 +91,19 @@ def main() -> int:
                                                              SEED, True))
         ms["B4 train"] = cuda_ms(lambda: A._bi_attention_bwd(
             *vis, *txt, vb, tb, c1, c2, l1, l2, do1, do2, RATE, RATE, SEED))
+        del vis, txt, do1, do2, c1, c2, l1, l2
+
+        # pretrain: the vision epilogue sites, B6 on the operands B5 read
+        h, res, do = (torch.randn(EPI_ROWS, EPI_D, generator=gen, device="cuda")
+                      .to(torch.bfloat16) for _ in range(3))
+        w = 1.0 + 0.1 * torch.randn(EPI_D, generator=gen, device="cuda")
+        b = 0.1 * torch.randn(EPI_D, generator=gen, device="cuda")
+        _, ops = E._epilogue_fwd(h, res, w, b, RATE, SEED)
+        ms["B5 pretrain"] = cuda_ms(lambda: E._epilogue_fwd(h, res, w, b, RATE, SEED))
+        out = torch.empty_like(h)
+        ms["torch.add, B5's bytes"] = cuda_ms(lambda: torch.add(h, res, out=out))
+        ms["B6 pretrain"] = cuda_ms(lambda: E._epilogue_bwd(*ops, do, RATE, SEED))
+        ms["B6 pretrain, no dropout"] = cuda_ms(lambda: E._epilogue_bwd(*ops, do, 0.0, SEED))
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -302,3 +302,53 @@ def test_knob_with_dropout_draws_the_kernel_masks(monkeypatch):
     off, on, again = (_forward(c)["ranking"] for c in cfgs)
     assert not torch.equal(off, on)
     assert torch.equal(on, again)
+
+
+# --------------------------------------------------------------------------- #
+# B6's grid and layout query (the kernel runs only on the card)
+# --------------------------------------------------------------------------- #
+@pytest.mark.parametrize("n_rows,want", [
+    (56 * 808, 264),     # pretraining vision sites: one wave of 2 x 132 blocks
+    (1001, 251),         # fewer rows than a wave holds: ceil(1001 / 4)
+    (1056, 264),         # exactly one wave of 4-row blocks
+    (1, 1)])
+def test_bwd_grid_is_one_wave(n_rows, want):
+    """A stub occupancy of 2 resident blocks of 4 rows on each of 132 SMs:
+    the grid is one wave, or the blocks the rows need when fewer."""
+    assert E._bwd_blocks(n_rows, rows_per_block=4, blocks_per_sm=2, sms=132) == want
+
+
+def test_bwd_grid_refuses_a_kernel_that_fits_no_block():
+    with pytest.raises(RuntimeError, match="fits no block"):
+        E._bwd_blocks(45_248, rows_per_block=4, blocks_per_sm=0, sms=132)
+
+
+def test_bwd_layout_reads_the_c_query_in_field_order(monkeypatch):
+    """``_bwd_layout`` names vln_epilogue_bwd_layout's out[6] by
+    ``BWD_LAYOUT_FIELDS`` (the order of csrc/epilogue.cu) and raises on a
+    CUDA error."""
+    import contextlib
+    import re
+
+    source = (E._build.CSRC / "epilogue.cu").read_text()
+    c_order = re.search(r"const int layout\[\] = \{(.*?)\};", source, re.S).group(1)
+    assert [x.strip() for x in c_order.split(",")][:3] == [
+        "B6_ROWS", "B6_THREADS", "blocks"]
+    assert len(E.BWD_LAYOUT_FIELDS) == 6 == len(c_order.split(","))
+
+    def query(is_bf16, out):
+        for i in range(6):
+            out[i] = 10 * i + is_bf16
+        return 0 if is_bf16 else 98
+
+    monkeypatch.setattr(torch.cuda, "device", lambda index: contextlib.nullcontext())
+    monkeypatch.setattr(E, "_kernel", lambda name, argtypes: query)
+    E._bwd_layout.cache_clear()
+    try:
+        layout = E._bwd_layout(True, 0)
+        assert layout == {f: 10 * i + 1 for i, f in enumerate(E.BWD_LAYOUT_FIELDS)}
+        assert layout["blocks_per_sm"] == 21
+        with pytest.raises(RuntimeError, match="CUDA error 98"):
+            E._bwd_layout(False, 0)
+    finally:
+        E._bwd_layout.cache_clear()

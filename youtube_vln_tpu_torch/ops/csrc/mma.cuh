@@ -1,5 +1,6 @@
 // Warp-level tensor-core and copy primitives of the bf16 attention kernels
-// (attention_fwd.cu, attention_bwd.cu; Hopper, sm_90a), as inline PTX.
+// (attention_fwd.cu, attention_bwd.cu; Hopper, sm_90a), as inline PTX; the
+// epilogue backward (epilogue.cu) uses the cp.async ones.
 //
 // mma.sync.m16n8k16 (bf16 in, f32 accumulate), lane = 4 * g + t:
 //   A 16x16 row-major, 4 registers of 2 bf16: (g, 2t..2t+1), (g + 8, 2t..),

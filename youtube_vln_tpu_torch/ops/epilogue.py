@@ -28,6 +28,7 @@ multiple of 128.  At the pretraining geometry that is the vision stream
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -40,9 +41,10 @@ LN_EPS = 1e-12
 # only where the mask traffic matters (the JAX package's threshold); tests
 # may lower it to reach the kernel sites at small shapes
 MIN_FUSED_ELEMENTS = 1 << 22
-MAX_D = 1024                 # csrc/epilogue.cu: a lane holds D / 32 values
-ROWS_PER_BLOCK = 8           # csrc/epilogue.cu WARPS
-BWD_BLOCKS_PER_SM = 4        # B6 grid: at most 4 blocks per SM
+MAX_D = 1024                 # csrc/epilogue.cu MAX_D
+# vln_epilogue_bwd_layout's out[6], in order
+BWD_LAYOUT_FIELDS = ("rows_per_block", "threads", "blocks_per_sm", "smem_bytes",
+                     "registers", "local_bytes")
 
 # kernel launches per wrapper, counted where the kernel is launched
 LAUNCHES = {"epilogue_fwd": 0, "epilogue_bwd": 0}
@@ -146,13 +148,13 @@ class _Epilogue(ctypes.Structure):
 _kernels = {}
 
 
-def _kernel(name: str):
+def _kernel(name: str, argtypes=(ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p)):
     """The C entry ``vln_<name>`` of ``csrc/epilogue.cu``, built on first
     use."""
     fn = _kernels.get(name)
     if fn is None:
         fn = getattr(_build.load("epilogue"), f"vln_{name}")
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+        fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
         _kernels[name] = fn
     return fn
@@ -208,9 +210,29 @@ def _epilogue_fwd(h, res, weight, bias, rate, seed):
     return out, (h, res, weight)
 
 
-def _bwd_blocks(n_rows: int, device) -> int:
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, min(math.ceil(n_rows / ROWS_PER_BLOCK), BWD_BLOCKS_PER_SM * sms))
+@functools.lru_cache(maxsize=None)
+def _bwd_layout(is_bf16: bool, device_index: int) -> dict:
+    """B6's layout on a card (``vln_epilogue_bwd_layout``), by
+    ``BWD_LAYOUT_FIELDS``: rows and threads per block, the resident blocks
+    per SM of the occupancy query, shared memory per block, registers and
+    local bytes per thread."""
+    out = (ctypes.c_int * len(BWD_LAYOUT_FIELDS))()
+    with torch.cuda.device(device_index):
+        err = _kernel("epilogue_bwd_layout", (ctypes.c_int, ctypes.c_void_p))(
+            int(is_bf16), out)
+    if err != 0:
+        raise RuntimeError(f"vln_epilogue_bwd_layout failed with CUDA error {err}")
+    return dict(zip(BWD_LAYOUT_FIELDS, out))
+
+
+def _bwd_blocks(n_rows: int, rows_per_block: int, blocks_per_sm: int,
+                sms: int) -> int:
+    """B6's grid: one wave of the blocks that fit on the card at once
+    (``blocks_per_sm`` from the occupancy query, on every SM), or fewer when
+    the rows need fewer; every block then walks its rows in a loop."""
+    if blocks_per_sm < 1:
+        raise RuntimeError("the epilogue backward kernel fits no block on an SM")
+    return max(1, min(math.ceil(n_rows / rows_per_block), blocks_per_sm * sms))
 
 
 def _epilogue_bwd(h, res, weight, do, rate, seed):
@@ -218,7 +240,9 @@ def _epilogue_bwd(h, res, weight, do, rate, seed):
     db); dh/dres [N, D] in h's dtype, dw/db [D] f32."""
     n, d = h.shape
     do = _rows(do.to(h.dtype), d)
-    n_blocks = _bwd_blocks(n, h.device)
+    layout = _bwd_layout(h.dtype == torch.bfloat16, h.device.index)
+    n_blocks = _bwd_blocks(n, layout["rows_per_block"], layout["blocks_per_sm"],
+                           torch.cuda.get_device_properties(h.device).multi_processor_count)
     dh, dres = torch.empty_like(h), torch.empty_like(h)
     parts = torch.empty(2, n_blocks, d, dtype=torch.float32, device=h.device)
     dw_db = torch.empty(2, d, dtype=torch.float32, device=h.device)
