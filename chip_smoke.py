@@ -21,6 +21,20 @@ Phases, each fatal on failure:
      on the step-dedup transport and on the dense one; the launch counts
      must show both kernels on that path, the scores must be finite, and
      the kernel path must agree with the plain path on one request;
+ 4b. the user's entry: ``entries.test.main`` (``python -m
+     youtube_vln_tpu_torch.entries.test``) at full width on an R2R fixture
+     at the flagship eval geometry written by the port's
+     ``build_r2r_fixture`` (val_unseen, 15 instructions x 30 beams x 8
+     steps x 100 boxes + the global row), weights of ``lily_base_config``
+     from the seed saved as a reference-layout ``.bin``: run A bf16 on the
+     step-dedup transport, B on the dense one, C f32 with the kernels, D
+     f32 with ``--no_pallas``; every results file covers all 15
+     instructions, scores finite at real beams, dense against step-dedup
+     within 1e-3 and f32 kernels against f32 plain within 1e-4 (the
+     trajectories equal except at ties within those), 6 + 6 launches of
+     B1/B2 per request in A-C and none in D, SPL <= SR by ``Evaluation``;
+     prints SR and SPL, ms per request through the entry, beams/s, host
+     ms per ``BeamDataset`` item and whether the native packer ran;
   5. B1-B4 in train mode at the fine-tuning shapes (96 x 8 heads, D = 128)
      and at odd lengths, bf16 and f32, dropout 0 and 0.1, with a padded
      candidate: outputs, row log-sum-exps and gradients against the plain
@@ -56,7 +70,8 @@ Phases, each fatal on failure:
  12. one traced pretraining step with the epilogue knob on and one with it
      off: device time by kind, B5/B6 a kind of their own, idle share;
  13. a ``kernels`` JSON line: per kernel its launches on the eval, the
-     fine-tuning and the pretraining path, error, time, bound, plain time
+     fine-tuning, the pretraining and the entry path (run A), error, time,
+     bound, plain time
      and a library call's time at the train shapes (B1/B2 also at the eval
      shapes, B5/B6 at the pretraining shape); B1-B4 also carry the bf16
      D = 128 registers and blocks per SM, B6 those of its bf16 instance.
@@ -594,7 +609,180 @@ def main_path(seed):
     print(json.dumps(device_breakdown(
         lambda: eval_epoch(model, cfg, requests[1:2], device="cuda"),
         "traced_request")))
-    return launches
+    return launches, t_dedup * 1e3 / len(requests)
+
+
+@contextlib.contextmanager
+def timed_eval_epoch(times):
+    """Appends the wall ms of every ``eval_epoch`` call of the test entry to
+    ``times``: from the Loader's first item to the last score on the host,
+    so host assembly, copies and scoring all count."""
+    from youtube_vln_tpu_torch.entries import test as entry
+    real = entry.eval_epoch
+
+    def timed(*a, **k):
+        t0 = time.perf_counter()
+        out = real(*a, **k)
+        times.append((time.perf_counter() - t0) * 1e3)
+        return out
+    entry.eval_epoch = timed
+    try:
+        yield
+    finally:
+        entry.eval_epoch = real
+
+
+def check_trajectories(results, other, scores, tol, what):
+    """The two runs' trajectories are equal except where the top two
+    scores of ``scores`` lie within ``tol`` of each other."""
+    import numpy as np
+    traj = {r["instr_id"]: r["trajectory"] for r in other}
+    ties = 0
+    for r in results:
+        if r["trajectory"] != traj[r["instr_id"]]:
+            top = np.sort(np.array(scores[r["instr_id"]]))[::-1]
+            if top[0] - top[1] > tol:
+                fail(f"{what}: trajectories differ at {r['instr_id']}, top-two "
+                     f"gap {top[0] - top[1]:.3e} above {tol:.0e}")
+            ties += 1
+    print(f"check trajectories, {what}: {len(results) - ties} equal, {ties} "
+          f"differ within a tie (tol {tol:.0e})")
+
+
+def entry_path(seed, synthetic_ms):
+    """Phase 4b: the user's own entry, ``entries.test.main``, on an R2R
+    fixture at the flagship eval geometry (``build_r2r_fixture``: 15
+    instructions of val_unseen x 30 beams x 8 steps x 100 boxes + the global
+    row), with weights of ``lily_base_config`` from the seed saved as a
+    reference-layout ``.bin``. Run A: bf16, step-dedup transport; B: the
+    dense transport; C: f32 with the kernels; D: f32 with ``--no_pallas``.
+    Returns run A's launch counts."""
+    import numpy as np
+    import torch
+    from youtube_vln_tpu_torch import lily_base_config
+    from youtube_vln_tpu_torch.data import store
+    from youtube_vln_tpu_torch.data.features_reader import PanoFeaturesReader
+    from youtube_vln_tpu_torch.data.fixtures import build_r2r_fixture
+    from youtube_vln_tpu_torch.entries import test as entry
+    from youtube_vln_tpu_torch.evaluation.metrics import Evaluation
+    from youtube_vln_tpu_torch.models import Lily
+    from youtube_vln_tpu_torch.training.checkpoint import load_checkpoint
+    from youtube_vln_tpu_torch.training.engine import (load_beam_dataset,
+                                                       resolve_tokenizer)
+    from youtube_vln_tpu_torch.utils.cli import parse_run_config
+
+    split, n_instr = "val_unseen", 15
+    with tempfile.TemporaryDirectory(prefix="r2r_fixture_") as root:
+        t0 = time.perf_counter()
+        paths = build_r2r_fixture(root, k_boxes=BOXES - 1, n_beams=NC, path_len=L,
+                                  seed=seed)
+        store_mb = Path(paths["store_path"]).stat().st_size / 1e6
+        print(f"R2R fixture: {split} {n_instr} instructions x {NC} beams x {L} "
+              f"steps x {BOXES} boxes, pano store {store_mb:.1f} MB, built in "
+              f"{time.perf_counter() - t0:.1f} s")
+        if store.get_native() is None:
+            fail("the native store library (native/libvlnstore.so) did not build: "
+                 "the step-dedup path needs its packer")
+        weights = Path(root) / "lily_base_seed.bin"
+        model = Lily(lily_base_config(), device="cuda").init_weights(seed)
+        torch.save({"model_state_dict": model.state_dict()}, weights)
+        missing, unexpected, _, _ = load_checkpoint(weights, model)
+        if missing or unexpected:
+            fail(f"weights file: missing {missing[:3]}, unexpected {unexpected[:3]}")
+        del model
+        torch.cuda.empty_cache()
+
+        flags = ["--device", "cuda",
+                 "--config_file", str(REPO / "configs" / "bert_base_6_layer_6_connect.json"),
+                 "--data_dir", paths["data_dir"], "--img_feature", paths["store_path"],
+                 "--bert_tokenizer", paths["vocab_path"], "--from_pretrained", str(weights),
+                 "--output_dir", str(Path(root) / "result"), "--seed", str(seed)]
+        runs = {"A": [], "B": ["--no_dedup_beam_steps"],
+                "C": ["--compute_dtype", "float32"],
+                "D": ["--compute_dtype", "float32", "--no_pallas"]}
+        out = {}
+        for name, extra in runs.items():
+            times = []
+            reset_counts()
+            with timed_eval_epoch(times):
+                results_path = entry.main(["--split", split] + flags + extra
+                                          + ["--save_name", f"run{name}"])
+            launches = counts()
+            folder = Path(results_path).parent
+            scores = dict(json.loads((folder / f"_scores_{split}.json").read_text()))
+            results = json.loads(Path(results_path).read_text())
+            out[name] = dict(launches=launches, scores=scores, results=results,
+                             path=results_path, ms=times[0])
+
+        # the items the entry scored, rebuilt for their beam masks and timed
+        # on the host, one __getitem__ at a time
+        _, args = parse_run_config(flags + ["--num_beams", "1", "--batch_size", "1",
+                                            "--ranking"])
+        host_ms = {}
+        for transport, dedup in (("step_dedup", True), ("dense", False)):
+            args.dedup_beam_steps = dedup
+            reader = PanoFeaturesReader(args.img_feature)
+            ds = load_beam_dataset(split, args, resolve_tokenizer(args), reader,
+                                   training=False)
+            t0 = time.perf_counter()
+            items = [ds[i] for i in range(len(ds))]
+            host_ms[transport] = (time.perf_counter() - t0) * 1e3 / len(items)
+            reader.close()
+        opt = {f"{int(it['instr_id'][0])}_{int(it['instr_id'][1])}": it["opt_mask"]
+               for it in items}
+        evaluation = Evaluation([split], data_dir=paths["data_dir"])
+
+    if len(opt) != n_instr:
+        fail(f"entry: {len(opt)} instructions in {split}, expected {n_instr}")
+    per_request = {"attention_fwd": lily_base_config().v_num_hidden_layers,
+                   "bi_attention_fwd": len(lily_base_config().v_biattention_id)}
+    for name, run in out.items():
+        what = f"entry run {name} ({' '.join(runs[name]) or 'bf16, step-dedup'})"
+        if {r["instr_id"] for r in run["results"]} != set(opt) or \
+                set(run["scores"]) != set(opt):
+            fail(f"{what}: results cover {len(run['results'])} of {n_instr} instructions")
+        for iid, mask in opt.items():
+            row = np.array(run["scores"][iid])
+            if row.shape != mask.shape or not (np.isfinite(row[mask]).all()
+                                               and np.isneginf(row[~mask]).all()):
+                fail(f"{what}: scores of {iid} not finite at real beams and -inf "
+                     f"at padded ones")
+        want = {k: (n * n_instr if name != "D" else 0) for k, n in per_request.items()}
+        got = {k: run["launches"][k] for k in want}
+        others = {k: v for k, v in run["launches"].items() if k not in want and v}
+        print(f"launches, {what}: {run['launches']}")
+        if got != want or others:
+            fail(f"{what}: launches {run['launches']}, expected {want} and no other")
+        summary, _ = evaluation.score_items(run["results"])
+        run["summary"] = summary
+        if not summary["spl"] <= summary["success_rate"]:
+            fail(f"{what}: SPL {summary['spl']} above SR {summary['success_rate']}")
+
+    for a, b, tol, what in (("B", "A", 1e-3, "dense vs step-dedup transport, bf16"),
+                            ("C", "D", 1e-4, "kernels vs --no_pallas, f32")):
+        err = max(float(np.abs(np.array(out[a]["scores"][k])[opt[k]]
+                               - np.array(out[b]["scores"][k])[opt[k]]).max())
+                  for k in opt)
+        print(f"check entry scores, {what}: max_abs_err {err:.3e} (tol {tol:.0e})")
+        if not err <= tol:
+            fail(f"entry scores, {what}: {err} above {tol}")
+        check_trajectories(out[a]["results"], out[b]["results"], out[b]["scores"],
+                           tol, what)
+
+    n_beams = int(sum(m.sum() for m in opt.values()))
+    print(json.dumps({
+        "entry_path": "python -m youtube_vln_tpu_torch.entries.test --split "
+                      "val_unseen, lily_base_config, R2R fixture at flagship geometry",
+        "requests": n_instr, "beams": n_beams,
+        "sr": {k: r["summary"]["success_rate"] for k, r in out.items()},
+        "spl": {k: r["summary"]["spl"] for k, r in out.items()},
+        "ms_per_request": {k: r["ms"] / n_instr for k, r in out.items()},
+        "beams_per_s": {k: n_beams / r["ms"] * 1e3 for k, r in out.items()},
+        "host_ms_per_item": host_ms,
+        "store_reader": "native" if store.get_native() is not None else "numpy",
+        "synthetic_ms_per_request": synthetic_ms,
+        "runs": {k: " ".join(v) or "bf16, step-dedup" for k, v in runs.items()}}))
+    return out["A"]["launches"]
 
 
 def device_breakdown(run, name):
@@ -1463,7 +1651,8 @@ def main() -> int:
 
     eval_rows = kernel_checks(args.seed)
     edge_checks(args.seed)
-    launches_eval = main_path(args.seed)
+    launches_eval, synthetic_ms = main_path(args.seed)
+    launches_entry = entry_path(args.seed, synthetic_ms)
     rows = train_kernel_checks(args.seed)
     launches_train = train_path(args.seed)
     rows.update(epilogue_kernel_checks(args.seed))
@@ -1473,8 +1662,9 @@ def main() -> int:
         row["launches_eval"] = launches_eval[name]
         row["launches_train"] = launches_train[name]
         row["launches_pretrain"] = launches_pretrain[name]
+        row["launches_entry"] = launches_entry[name]
         row["launches"] = (launches_eval[name] + launches_train[name]
-                           + launches_pretrain[name])
+                           + launches_pretrain[name] + launches_entry[name])
         if name in eval_rows:
             row["eval_shape"] = {k: eval_rows[name][k] for k in keys}
         row.update(occupancy.get(name, {}))

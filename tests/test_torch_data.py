@@ -50,12 +50,35 @@ def fixtures(tmp_path_factory):
     return out
 
 
-@pytest.mark.parametrize("name", sorted(DATASETS))
-def test_fixtures_write_identical_files(fixtures, name):
-    jax_paths, port_paths = fixtures["jax", name], fixtures["port", name]
-    assert jax_paths.keys() == port_paths.keys()
-    for key in jax_paths:
-        assert filecmp.cmp(jax_paths[key], port_paths[key], shallow=False), key
+# the builders of whole directories: every file they write is compared
+TREE_BUILDERS = {"r2r": "build_r2r_fixture", "full": "build_full_fixture"}
+
+
+def _tree(root):
+    return sorted(str(p.relative_to(root)) for p in root.rglob("*") if p.is_file())
+
+
+@pytest.mark.parametrize("name", sorted(DATASETS) + sorted(TREE_BUILDERS))
+def test_fixtures_write_identical_files(fixtures, name, tmp_path):
+    if name in DATASETS:
+        jax_paths, port_paths = fixtures["jax", name], fixtures["port", name]
+        assert jax_paths.keys() == port_paths.keys()
+        for key in jax_paths:
+            assert filecmp.cmp(jax_paths[key], port_paths[key], shallow=False), key
+        return
+    # the R2R fixture (task, beam, connectivity and distances JSONs, pano
+    # store, vocab) and the full data directory, byte for byte
+    roots = {}
+    for pkg_name, pkg in (("jax", JAX), ("port", PORT)):
+        roots[pkg_name] = tmp_path / pkg_name
+        paths = getattr(pkg["fix"], TREE_BUILDERS[name])(roots[pkg_name], seed=1)
+        assert all(str(v).startswith(str(roots[pkg_name])) for v in paths.values())
+    files = _tree(roots["jax"])
+    assert files == _tree(roots["port"])
+    for sub in ("connectivity", "distances", "task", "beamsearch"):
+        assert any(f.startswith(sub + "/") for f in files), sub
+    for rel in files:
+        assert filecmp.cmp(roots["jax"] / rel, roots["port"] / rel, shallow=False), rel
 
 
 def _args(pkg, name, paths, **kw):

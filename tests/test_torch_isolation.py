@@ -24,23 +24,32 @@ for module in ("device", "ops.philox", "ops.epilogue", "ops.masking",
                "training.losses", "training.optimization", "parallel.train_step",
                "data.store", "data.features_reader", "data.tokenizer",
                "data.sampling", "data.instructions", "data.datasets",
-               "data.loader", "data.fixtures"):
+               "data.loader", "data.fixtures", "data.nav_graph",
+               "evaluation.metrics", "training.engine", "training.checkpoint",
+               "utils.cli", "utils.entry", "utils.misc", "entries.test",
+               "entries.calculate_metrics"):
     assert pkg.__name__ + "." + module in names, module
 
+import os, tempfile
 import numpy as np
 from youtube_vln_tpu_torch import tiny_config
 from youtube_vln_tpu_torch.config import RunConfig
 from youtube_vln_tpu_torch.evaluation import beam_eval
 from youtube_vln_tpu_torch.models import Lily
+from youtube_vln_tpu_torch.entries import test as test_entry
 from youtube_vln_tpu_torch.parallel import train_step
 cfg = tiny_config()
 args = RunConfig(ranking=True)
+out = tempfile.mkdtemp()
 model = Lily(cfg, device="cpu").init_weights(0)
 optimizer, _ = train_step.create_train_state(model, args, 1)
 for call in (lambda: beam_eval.eval_epoch(model, cfg, []),
              lambda: beam_eval.build_score_step(model, cfg),
              lambda: train_step.build_train_step(model, cfg, args, optimizer),
-             lambda: train_step.build_eval_step(model, cfg, args)):
+             lambda: train_step.build_eval_step(model, cfg, args),
+             # the device is resolved before any data is read: no data here
+             lambda: test_entry.main(["--split", "val_unseen", "--data_dir",
+                                      "absent", "--output_dir", out])):
     try:
         call()
     except RuntimeError as e:
@@ -49,6 +58,7 @@ for call in (lambda: beam_eval.eval_epoch(model, cfg, []),
         raise SystemExit("an entry point ran without CUDA and without device='cpu'")
 assert beam_eval.eval_epoch(model, cfg, [], device="cpu") == []
 train_step.build_train_step(model, cfg, args, optimizer, device="cpu")
+assert not os.listdir(out), "the test entry wrote output before it refused"
 print("isolated")
 """
 
@@ -69,7 +79,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 _HOST_ONLY = r"""
 import sys
 import youtube_vln_tpu_torch.data.datasets, youtube_vln_tpu_torch.data.fixtures
-import youtube_vln_tpu_torch.data.loader
+import youtube_vln_tpu_torch.data.loader, youtube_vln_tpu_torch.data.nav_graph
+import youtube_vln_tpu_torch.evaluation.metrics
+from youtube_vln_tpu_torch.data.datasets import BeamDataset
 assert "torch" not in sys.modules, "the host pipeline imports torch"
 print("host only")
 """

@@ -293,11 +293,15 @@ def test_steps_refuse_a_missing_head():
           shuffle_visual_features=True), True)])
 def test_run_config_copies_the_jax_fields(overrides, valid):
     """Every field of the port's RunConfig exists in the JAX one with the
-    same default, and validate() accepts and refuses the same runs."""
+    same default (``use_attention_kernels`` under its JAX name,
+    ``use_pallas_attention``), and validate() accepts and refuses the same
+    runs."""
     import dataclasses
     port, ref = RunConfig(**overrides), JaxRunConfig(**overrides)
+    renamed = {"use_attention_kernels": "use_pallas_attention"}
     for field in dataclasses.fields(RunConfig):
-        assert getattr(port, field.name) == getattr(ref, field.name), field.name
+        assert getattr(port, field.name) == getattr(
+            ref, renamed.get(field.name, field.name)), field.name
     for cfg in (port, ref):
         if valid:
             cfg.validate()

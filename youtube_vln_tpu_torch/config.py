@@ -21,8 +21,10 @@ ignored.  Differences from the JAX copy:
     CUDA kernels B5/B6.
 
 ``RunConfig`` copies the fields of ``youtube_vln_tpu/config.py:RunConfig``
-that the train step and the pretraining datasets and loader read, with the
-same defaults and the ``validate`` checks that concern them.
+that the train step, the datasets, the loader and the command line read,
+with the same defaults and the ``validate`` checks that concern them; the
+TPU-only ones (mesh, remat, compilation cache, profiler, Orbax) have no
+counterpart, and ``utils/cli.py`` refuses their flags.
 """
 from __future__ import annotations
 
@@ -196,7 +198,18 @@ class RunConfig:
     # data selection
     pretrain: bool = True
     pre_dataset: str = ""                 # "ytb" | "bnb" | ""
+    prefix: str = ""
+    r2r_prefix: str = ""
+    beam_prefix: str = ""
+    feather_note: str = ""
+    data_dir: str = "data"
+    img_feature: str = "data/matterport-ResNet-101-faster-rcnn-genome.lmdb"
+    ytb_feature: Tuple[str, ...] = ()
+    bnb_feature: Tuple[str, ...] = ()
     skeleton_path: str = "data/task/R2R_train_templates.json"
+    bert_tokenizer: str = "bert-base-uncased"
+    config_file: str = "data/config/bert_base_6_layer_6_connect.json"
+    from_pretrained: str = ""
     # geometry
     max_instruction_length: int = 60
     max_path_length: int = 8
@@ -204,11 +217,14 @@ class RunConfig:
     min_path_length: int = 4
     min_captioned: int = 2
     max_captioned: int = 7
-    # negatives
+    # negatives / beams
     num_negatives: int = 2
+    num_beams: int = 30
+    num_beams_train: int = 4
     negative_style: str = "normal"
     shuffler: str = "different"
     shuffle_visual_features: bool = False
+    ground_truth_trajectory: bool = False
     mask_action_rate: float = 0.0
     random_action: bool = False
     no_serial: bool = False
@@ -217,6 +233,7 @@ class RunConfig:
     # training
     batch_size: int = 2
     num_epochs: int = 20
+    save_epochs: int = -1
     gradient_accumulation_steps: int = 1
     learning_rate: float = 4e-5
     warmup_proportion: float = 0.2
@@ -226,8 +243,21 @@ class RunConfig:
     ConstantLR: bool = False
     lr_schedule: str = "warmup_linear"  # a key of training.optimization.SCHEDULES
     sparse_task_heads: bool = True      # decoders only on target rows
+    resume: bool = False
     seed: int = 1
     num_workers: int = 3
+    # eval / run management
+    mini: bool = False
+    debug: bool = False
+    no_test: bool = False
+    skip_val: bool = False
+    skip_all_reduce: bool = False
+    output_dir: str = "result"
+    save_name: str = ""
+    note: str = ""
+    # model knobs folded into LilyConfig by utils/entry.py
+    compute_dtype: str = "bfloat16"
+    use_attention_kernels: bool = True  # counterpart of use_pallas_attention
     # transport
     io_dtype: str = "float16"           # host->device dtype of features
                                         # and targets; the model upcasts
@@ -236,6 +266,11 @@ class RunConfig:
     dedup_candidates: Optional[bool] = None  # ship each unique trajectory's
                                         # visual rows once per sample;
                                         # None follows sparse_vision_targets
+    dedup_beam_steps: bool = True       # beam eval: ship each unique
+                                        # (viewpoint, heading, step) pano
+                                        # block once + a per-beam step
+                                        # index, expanded on the device
+    host_prefetch: int = 2              # batches copied ahead of their use
 
     def __post_init__(self):
         # tri-state: None means "follow sparse_vision_targets", so the pair

@@ -1,6 +1,5 @@
-"""Datasets: YouTube/BnB pretraining (the pretraining part of
-``youtube_vln_tpu/data/datasets.py``, copied; the R2R beam-ranking dataset
-and its navigation graphs come with the beam-eval slice).
+"""Datasets: YouTube/BnB pretraining and the R2R beam-ranking dataset (a
+copy of ``youtube_vln_tpu/data/datasets.py`` on the port's ``NavGraph``).
 
 Pure-Python + numpy (no torch); each ``__getitem__`` returns a dict of
 statically-shaped numpy arrays matching the train-step batch layout
@@ -31,6 +30,7 @@ import numpy as np
 
 from . import sampling as S
 from . import instructions as I
+from .nav_graph import get_headings, load_distances, load_nav_graphs
 from ..ops.masking import (
     max_masked_regions,
     randomize_regions_np,
@@ -562,3 +562,581 @@ class BnBDataset(PretrainDataset):
 
     def generate_instruction(self, traj):
         return self.build_instruction(traj)
+
+
+# --------------------------------------------------------------------------- #
+# R2R beam dataset
+# --------------------------------------------------------------------------- #
+class BeamDataset:
+    """Beam re-ranking dataset (reference all_dataset.py:563-1105)."""
+
+    def __init__(self, args, vln_path, beam_path, tokenizer, features_reader,
+                 num_beams: int, num_beams_strict: bool, training: bool,
+                 masked_vision: bool, masked_language: bool,
+                 shuffle_visual_features: bool, shuffler: str = "different",
+                 ground_truth_trajectory: bool = False,
+                 data_dir: str = "data", seed: int = 0):
+        self.args = args
+        self.reader = features_reader
+        self.training = training
+        self.masked_vision = masked_vision
+        self.masked_language = masked_language
+        self.shuffle_visual = shuffle_visual_features
+        self.ground_truth_trajectory = ground_truth_trajectory
+        self.batch_size = args.batch_size // args.gradient_accumulation_steps
+        self.traj_judge_only = args.traj_judge and not (
+            args.ranking or args.not_traj_judge_data)
+        self.rng = _random.Random(seed)
+        self.np_rng = np.random.default_rng(seed)
+        self.tok = tokenizer
+        self.assembler = _PathFeatureAssembler(args.max_path_length,
+                                               args.max_num_boxes)
+        self.io_dtype = np.dtype(getattr(args, "io_dtype", "float32"))
+        self.sparse_vision_targets = getattr(args, "sparse_vision_targets",
+                                             False)
+        # see PretrainDataset: skip vision targets when the TASK is off
+        # (a ranking-only eval batch is mostly the dense uniform block)
+        self.emit_vision_targets = masked_vision or bool(
+            getattr(args, "masked_vision", False))
+        # step-level transport dedup (--dedup_beam_steps): eval beams are
+        # tree-shaped paths over one graph neighborhood (reference
+        # all_dataset.py:981-1041), so per-step pano blocks repeat across
+        # beams; ship each unique (viewpoint, heading, step) block once +
+        # a per-beam gather index, expanded in-graph (beam_eval.py).
+        # Scope: eval items with the masked-vision task off (features are
+        # then never corrupted and no per-beam prob targets are shipped).
+        self.step_dedup = (bool(getattr(args, "dedup_beam_steps", False))
+                           and not training and not masked_vision
+                           and not self.emit_vision_targets)
+        if shuffler not in ("different", "nonadj"):
+            raise ValueError(f"Unexpected shuffling mode ({shuffler})")
+        self.shuffler = S.load_shuffler(shuffler)
+
+        self.vln_data = I.load_tokens(vln_path, tokenizer,
+                                      args.max_instruction_length)
+        scan_list = sorted({item["scan"] for item in self.vln_data})
+        self.graphs = load_nav_graphs(scan_list, data_dir)
+        self.distances = load_distances(scan_list, data_dir)
+
+        self.num_beams = num_beams
+        if training:
+            num_beams_strict = False
+        beam_data = I.load_json(beam_path)
+        self.beam_data = []
+        for idx, item in enumerate(beam_data):
+            if len(item["ranked_paths"]) >= num_beams:
+                if num_beams_strict:
+                    item["ranked_paths"] = item["ranked_paths"][:num_beams]
+                self.beam_data.append(item)
+            else:
+                logger.warning("skipping beam index %d from %s", idx,
+                               beam_path)
+        path_to_vln = {item["path_id"]: i
+                       for i, item in enumerate(self.vln_data)}
+        self.beam_to_vln = {}
+        for idx, item in enumerate(self.beam_data):
+            pid = int(item["instr_id"].split("_")[0])
+            if pid not in path_to_vln:
+                logger.warning("Skipping beam %s", item["instr_id"])
+                continue
+            self.beam_to_vln[idx] = path_to_vln[pid]
+
+    def reseed(self, seed: int) -> None:
+        self.rng.seed(seed)
+        self.np_rng = np.random.default_rng(seed)
+
+    def __len__(self):
+        return len(self.beam_data)
+
+    def num_candidates(self) -> int:
+        if self.training:
+            n = self.args.num_beams_train if not self.traj_judge_only else 1
+            if self.shuffle_visual or self.traj_judge_only:
+                n += self.args.num_negatives
+            return n
+        if self.batch_size == 1:
+            # the reference skips the per-item tile/trim entirely at batch
+            # size 1 (all_dataset.py:782) and torch's default collate takes
+            # whatever candidate count the item has — ALL ranked paths are
+            # scored (test.py mode sets num_beams=1, test.py:46, making
+            # this also the test.py all-paths path; the same holds for a
+            # val split evaluated at batch_size 1 when an item carries
+            # more than num_beams ranked paths, since num_beams_strict is
+            # always False, dataset_init.py:85).  Our static collate pads
+            # every item to the dataset-wide max and masks the padding
+            # via opt_mask.
+            n = self.max_beam_count()
+        else:
+            n = self.num_beams
+        return n + (self.args.num_negatives + 1
+                    if self.shuffle_visual else 0)
+
+    def max_beam_count(self) -> int:
+        return max(len(item["ranked_paths"]) for item in self.beam_data)
+
+    def _success(self, scan_id, gt_path, beam_paths, margin=3.0):
+        d = self.distances[scan_id]
+        return np.array([
+            1.0 if d[gt_path[-1]][bp[-1]] < margin else 0.0
+            for bp in beam_paths])
+
+    def _path_features(self, scan_id, path, first_heading):
+        headings = get_headings(self.graphs[scan_id], path, first_heading)
+        next_headings = headings[1:] + [headings[-1]]
+        steps = []
+        for i, vp in enumerate(path[: self.args.max_path_length]):
+            feats, locs, probs = self.reader[
+                f"{scan_id}-{vp}", headings[i], next_headings[i]]
+            steps.append(self.assembler.pad_step(feats, locs, probs, i))
+        L = self.args.max_path_length
+        for i in range(len(steps), L):
+            steps.append(self.assembler.empty_step(i))
+        return steps
+
+    def _packed_path_features(self, scan_id, path, first_heading):
+        """stack(_path_features(...)) with the native pano packer when
+        available (one C call per candidate path)."""
+        headings = get_headings(self.graphs[scan_id], path, first_heading)
+        next_headings = headings[1:] + [headings[-1]]
+        L = self.args.max_path_length
+        pack = getattr(self.reader, "pack_pano_path", None)
+        if pack is not None:
+            packed = pack([f"{scan_id}-{vp}" for vp in path[:L]],
+                          headings[:L], next_headings[:L], L,
+                          self.args.max_num_boxes)
+            if packed is not None:
+                return packed
+        steps = []
+        for i, vp in enumerate(path[:L]):
+            feats, locs, probs = self.reader[
+                f"{scan_id}-{vp}", headings[i], next_headings[i]]
+            steps.append(self.assembler.pad_step(feats, locs, probs, i))
+        return self.assembler.stack(steps)
+
+    # n_u is padded up to a bucket multiple so the scorer jit sees at most
+    # ceil(nc * L / bucket) static shapes per run (each bucket compiles
+    # once; a per-item exact n_u would recompile for every instruction)
+    STEP_BUCKET = 40
+
+    def _dedup_step_features(self, scan_id, paths, first_heading):
+        """Unique per-step pano block SPECS + a [nc, L] gather index.
+
+        A step block is fully determined by (viewpoint, entry heading,
+        next heading, step position) — the reader call plus the assembler
+        padding take exactly these — so beams sharing a path prefix (the
+        common case: beams are a search tree, all_dataset.py:981-1041)
+        reuse each other's blocks, and every short path shares the same
+        empty-step block per position.  Specs are (store_key|None,
+        heading, next_heading, position); assembly happens batched in
+        _finalize_step_dedup (one native C call for the whole item)."""
+        L = self.args.max_path_length
+        specs, index_rows = [], []
+        seen: Dict[tuple, int] = {}
+        for path in paths:
+            headings = get_headings(self.graphs[scan_id], path,
+                                    first_heading)
+            next_headings = headings[1:] + [headings[-1]]
+            row = []
+            for i, vp in enumerate(path[:L]):
+                key = (vp, float(headings[i]), float(next_headings[i]), i)
+                j = seen.get(key)
+                if j is None:
+                    j = len(specs)
+                    seen[key] = j
+                    specs.append((f"{scan_id}-{vp}", headings[i],
+                                  next_headings[i], i))
+                row.append(j)
+            for i in range(min(len(path), L), L):
+                key = (None, 0.0, 0.0, i)
+                j = seen.get(key)
+                if j is None:
+                    j = len(specs)
+                    seen[key] = j
+                    specs.append((None, 0.0, 0.0, i))
+                row.append(j)
+            index_rows.append(row)
+        return specs, np.asarray(index_rows, np.int32)
+
+    def _assemble_step(self, key, heading, next_heading, step_idx: int):
+        """One pano step block through the SAME code path as the dense
+        item (the native packer when available): the global-region row is
+        a mean over box features whose C accumulation order differs from
+        numpy's pairwise summation by 1 f16 ulp, so mixing paths would
+        break the bit-exact dedup==dense guarantee.  key None -> the
+        empty-step block."""
+        if key is None:
+            return self.assembler.empty_step(step_idx)
+        pack = getattr(self.reader, "pack_pano_path", None)
+        if pack is not None:
+            packed = pack([key], [heading], [next_heading],
+                          1, self.assembler.max_num_boxes)
+            if packed is not None:
+                f, b, p, m = packed
+                b[:, 11] = step_idx   # the packer wrote position 0
+                return f, b, p, m
+        feats, locs, probs = self.reader[key, heading, next_heading]
+        return self.assembler.pad_step(feats, locs, probs, step_idx)
+
+    def _finalize_step_dedup(self, instr_tokens, specs, step_index,
+                             target, instr_id):
+        nc = step_index.shape[0]
+        boxes = self.assembler.max_num_boxes
+        n_u = len(specs)
+        # cap at the dense slot count: n_u <= nc*L always, and without the
+        # cap a small geometry (few beams / short paths) would pad past the
+        # dense layout and ship MORE bytes than the transport it replaces
+        bucket = min(-(-n_u // self.STEP_BUCKET) * self.STEP_BUCKET,
+                     nc * self.args.max_path_length)
+        # zeros, not empty: blocks past n_u are the bucket padding and
+        # must stay zero (the scorer's gather never reads them, but the
+        # collate/H2D ships them)
+        uniq_feats = np.zeros((bucket, boxes, 2048), self.io_dtype)
+        uniq_locs = np.zeros((bucket, boxes, 12), np.float32)
+        uniq_mask = np.zeros((bucket, boxes), np.int32)
+        packed = None
+        if self.io_dtype == np.float16:
+            pack = getattr(self.reader, "pack_pano_steps", None)
+            if pack is not None:
+                keys, hs, nhs, poss = zip(*specs)
+                packed = pack(keys, hs, nhs, poss, boxes,
+                              out=(uniq_feats, uniq_locs, uniq_mask))
+        if packed is None:   # python / f32 / multi-shard fallback
+            for j, (key, hd, nh, pos) in enumerate(specs):
+                f, b, _, m = self._assemble_step(key, hd, nh, pos)
+                uniq_feats[j] = f
+                uniq_locs[j] = b
+                uniq_mask[j] = m
+        instr_tokens, instr_mask, instr_targets, segment_ids = \
+            self._instruction_fields(instr_tokens, nc)
+        return dict(
+            ranking_target=np.asarray(target, np.float32),
+            uniq_step_features=uniq_feats,
+            uniq_step_locations=uniq_locs,
+            uniq_step_mask=uniq_mask,
+            step_index=step_index,
+            instr_tokens=instr_tokens,
+            instr_mask=instr_mask,
+            instr_targets=instr_targets,
+            segment_ids=segment_ids,
+            opt_mask=np.ones((nc,), bool),
+            ordering_target=np.zeros((0, self.args.max_path_length),
+                                     np.int32),
+            instr_id=instr_id,
+        )
+
+    def _packed_paths_f16(self, scan_id, paths, first_heading):
+        """All candidates' step blocks in ONE native call (f16 features,
+        f32 locations, i32 mask; class probabilities never materialized —
+        the ranking-only eval item reads none, and the [nc, S_v, 1601]
+        probs stack was ~60% of the dense item's host bytes at flagship
+        eval geometry).  None -> caller takes the generic path."""
+        pack = getattr(self.reader, "pack_pano_steps", None)
+        if pack is None:
+            return None
+        L = self.args.max_path_length
+        boxes = self.assembler.max_num_boxes
+        keys, hs, nhs, poss = [], [], [], []
+        for path in paths:
+            headings = get_headings(self.graphs[scan_id], path,
+                                    first_heading)
+            next_headings = headings[1:] + [headings[-1]]
+            n = min(len(path), L)
+            for i in range(n):
+                keys.append(f"{scan_id}-{path[i]}")
+                hs.append(headings[i])
+                nhs.append(next_headings[i])
+                poss.append(i)
+            for i in range(n, L):
+                keys.append(None)
+                hs.append(0.0)
+                nhs.append(0.0)
+                poss.append(i)
+        nc = len(paths)
+        # every block is written by the native call — empty init is safe
+        f = np.empty((nc, L * boxes, 2048), np.float16)
+        l = np.empty((nc, L * boxes, 12), np.float32)
+        m = np.empty((nc, L * boxes), np.int32)
+        return pack(keys, hs, nhs, poss, boxes, out=(f, l, m))
+
+    def _finalize_eval_fast(self, instr_tokens, packed, target, instr_id):
+        """_finalize for the probs-free eval layout (same output dict,
+        minus the vision-target fields the gate already excludes)."""
+        image_features, image_locations, image_mask = packed
+        nc = image_features.shape[0]
+        instr_tokens, instr_mask, instr_targets, segment_ids = \
+            self._instruction_fields(instr_tokens, nc)
+        ranking_target = (np.int32(target) if self.training
+                         else np.asarray(target, np.float32))
+        return dict(
+            ranking_target=ranking_target,
+            image_features=image_features,
+            image_locations=image_locations,
+            image_mask=image_mask,
+            instr_tokens=instr_tokens.astype(np.int32, copy=False),
+            instr_mask=instr_mask,
+            instr_targets=instr_targets.astype(np.int32, copy=False),
+            segment_ids=segment_ids,
+            opt_mask=np.ones((nc,), bool),
+            ordering_target=np.zeros((0, self.args.max_path_length),
+                                     np.int32),
+            instr_id=instr_id,
+        )
+
+    def _single_feature(self, scan_id, viewpoint, step_idx):
+        heading = self.rng.uniform(-np.pi / 2, np.pi / 2)
+        next_heading = self.rng.uniform(-np.pi / 2, np.pi / 2)
+        feats, locs, probs = self.reader[
+            f"{scan_id}-{viewpoint}", heading, next_heading]
+        return self.assembler.pad_step(feats, locs, probs, step_idx)
+
+    def __getitem__(self, beam_index: int) -> Dict[str, np.ndarray]:
+        vln_index = self.beam_to_vln[beam_index]
+        vln_item = self.vln_data[vln_index]
+        path_id, instruction_index = map(
+            int, self.beam_data[beam_index]["instr_id"].split("_"))
+        scan_id = vln_item["scan"]
+        heading = vln_item["heading"]
+        gt_path = vln_item["path"]
+
+        instr_tokens = np.asarray(
+            vln_item["instruction_tokens"][instruction_index], np.int32)
+
+        beam_paths = [[p for p, _, _ in ranked]
+                      for ranked in self.beam_data[beam_index]["ranked_paths"]]
+        success = self._success(scan_id, gt_path, beam_paths)
+
+        if self.training:
+            target, selected_paths = self._select_training_paths(
+                vln_item, instruction_index, beam_paths, success, vln_index)
+        else:
+            target = np.zeros(len(beam_paths)) if self.traj_judge_only \
+                else success
+            selected_paths = list(beam_paths)
+            if self.shuffle_visual:
+                for i in np.arange(len(success))[success.astype(bool)]:
+                    if i > self.args.num_negatives:
+                        break
+                    selected_paths.append(
+                        next(self.shuffler(selected_paths[int(i)], self.rng)))
+                    target = np.append(target, 0)
+            if self.batch_size != 1 and len(target) != self.num_beams:
+                reps = int(self.num_beams / len(target)) + 1
+                target = np.tile(target, reps)[: self.num_beams]
+                selected_paths = (selected_paths * reps)[: self.num_beams]
+
+        iid = np.asarray([path_id, instruction_index], np.int64)
+        if self.training and self.traj_judge_only:
+            step_lists = self._traj_judge_features(
+                scan_id, heading, selected_paths, vln_index)
+            feats = [self.assembler.stack(s) for s in step_lists]
+        elif self.step_dedup:
+            specs, step_index = self._dedup_step_features(
+                scan_id, selected_paths, heading)
+            return self._finalize_step_dedup(instr_tokens, specs,
+                                             step_index, target, iid)
+        else:
+            if (not self.masked_vision and not self.emit_vision_targets
+                    and not self.masked_language
+                    and self.io_dtype == np.float16):
+                # ranking-only item: skip the probs stack entirely and
+                # pack all candidates' blocks in one native call.  The
+                # masked_language exclusion is caution, not correctness
+                # (no vision rng draws happen on either path) — it keeps
+                # every MLM-bearing item on the single reference-shaped
+                # assembly path.
+                packed = self._packed_paths_f16(scan_id, selected_paths,
+                                                heading)
+                if packed is not None:
+                    return self._finalize_eval_fast(instr_tokens, packed,
+                                                    target, iid)
+            feats = [self._packed_path_features(scan_id, p, heading)
+                     for p in selected_paths]
+
+        return self._finalize(instr_tokens, feats, target, iid)
+
+    def _select_training_paths(self, vln_item, instruction_index, beam_paths,
+                               success, vln_index):
+        """Reference all_dataset.py:702-748.
+
+        The speaker-augmented ``positive`` field is INERT in the reference
+        beyond its GT-incompatibility assert: its branch (:702-706) sets
+        target/selected_paths, but the success-count if/else that follows
+        (:709-733) assigns BOTH on every path, unconditionally overwriting
+        them — an aug item with positive=false and sufficient
+        success/failure counts trains as an ordinary target=0 item with
+        np.random-selected beams.  Replicated exactly (an earlier `elif
+        selected_paths is None` kept the dead branch alive, silently
+        changing 30RSA training data AND the per-item np RNG stream);
+        pinned by tests/test_data.py:test_beam_dataset_aug_positive_field.
+        """
+        target = 0
+        if "positive" in vln_item and \
+                not vln_item["positive"][instruction_index]:
+            target = -1
+            selected_paths = beam_paths[: self.args.num_beams_train]
+            assert not self.ground_truth_trajectory, "Not compatible"
+        if np.sum(success == 1) == 0 or \
+                np.sum(success == 0) < self.args.num_beams_train - 1:
+            target = -1
+            if self.ground_truth_trajectory:
+                selected_paths = [vln_item["path"]] + \
+                    beam_paths[: self.args.num_beams_train - 1]
+            else:
+                selected_paths = beam_paths[: self.args.num_beams_train]
+        else:
+            target = 0
+            selected_paths = []
+            if self.ground_truth_trajectory:
+                selected_paths.append(vln_item["path"])
+            else:
+                idx = self.np_rng.choice(np.where(success == 1)[0])
+                selected_paths.append(beam_paths[int(idx)])
+            if not self.traj_judge_only:
+                idxs = self.np_rng.choice(np.where(success == 0)[0],
+                                          size=self.args.num_beams_train - 1,
+                                          replace=False)
+                for idx in idxs:
+                    selected_paths.append(beam_paths[int(idx)])
+
+        if self.shuffle_visual and not self.traj_judge_only:
+            path = vln_item["path"]
+            for corr, _ in zip(self.shuffler(list(range(len(path))), self.rng),
+                               range(self.args.num_negatives)):
+                selected_paths.append([path[i] for i in corr])
+        return target, selected_paths
+
+    def _traj_judge_features(self, scan_id, heading, selected_paths,
+                             vln_index):
+        """Training negatives for the pure judge task: 3 shuffle types
+        (reference all_dataset.py:790-879).
+
+        DOCUMENTED DEVIATION (MIGRATION.md): in shuffle type 3 the
+        reference's ``temp = path_features[0].copy()`` is a shallow copy,
+        so all candidates alias the same inner step lists and every
+        replacement mutates the positive too — after the loop ALL
+        candidates carry identical visual features while the judge
+        targets still mark only candidate 0 positive.  We replace steps
+        per candidate (the evident intent — ``steps = list(pos_steps)``
+        below copies the outer list).  The live loop-parity test
+        replicates the reference aliasing in a test-side shim."""
+        pos = selected_paths[0][: self.args.max_path_length]
+        pos_steps = self._path_features(scan_id, pos, heading)
+        step_lists = [pos_steps]
+        path_range = list(range(len(pos)))
+        shuffle_type = self.rng.randint(1, 3)
+
+        if shuffle_type == 1:
+            # recompute features along a shuffled viewpoint order
+            for corr, _ in zip(self.shuffler(path_range, self.rng),
+                               range(self.args.num_negatives)):
+                path = [pos[i] for i in corr]
+                step_lists.append(self._path_features(scan_id, path, heading))
+        elif shuffle_type == 2:
+            # permute the positive path's precomputed per-step features
+            for corr, _ in zip(self.shuffler(path_range, self.rng),
+                               range(self.args.num_negatives)):
+                steps = [pos_steps[i] for i in corr]
+                steps += pos_steps[len(pos):self.args.max_path_length]
+                step_lists.append(steps)
+        else:
+            # splice in viewpoints from a different scan
+            other = self.rng.randint(0, len(self.vln_data) - 1)
+            while other == vln_index:
+                other = self.rng.randint(0, len(self.vln_data) - 1)
+            path2 = self.vln_data[other]["path"]
+            scan2 = self.vln_data[other]["scan"]
+            max_out = 4
+            for _ in range(self.args.num_negatives):
+                min_len = min(len(pos), len(path2))
+                n_out = self.rng.randint(1, min(max_out, min_len))
+                steps = list(pos_steps)
+                for i in self.rng.sample(range(min_len), n_out):
+                    steps[i] = self._single_feature(scan2, path2[i], i)
+                step_lists.append(steps)
+        return step_lists
+
+    def _instruction_fields(self, instr_tokens, nc):
+        """Per-candidate instruction arrays (+ optional MLM masking).
+        NOTE: callers must invoke this AFTER any vision-masking rng draws
+        so the np_rng stream order matches the reference item assembly."""
+        instr_tokens = np.tile(instr_tokens[None, :], (nc, 1))
+        instr_mask = (instr_tokens > 0).astype(np.int32)
+        segment_ids = np.zeros_like(instr_tokens)
+        if self.masked_language:
+            instr_tokens, instr_targets = randomize_tokens_np(
+                instr_tokens, instr_mask, len(self.tok.vocab),
+                self.tok.vocab["[MASK]"], self.np_rng,
+                self.args.mask_action_rate)
+        else:
+            instr_targets = np.full_like(instr_tokens, -1)
+        return (instr_tokens.astype(np.int32, copy=False), instr_mask,
+                instr_targets.astype(np.int32, copy=False), segment_ids)
+
+    def _finalize(self, instr_tokens, feats, target, instr_id):
+        nc = len(feats)
+        # fused cast-copy into the transport dtype (see PretrainDataset)
+        image_features = np.stack([f[0] for f in feats],
+                                  dtype=self.io_dtype)
+        image_locations = np.stack([f[1] for f in feats])
+        # probs stacked ONLY on the branches that read them: the stack is
+        # ~155 MB of copy per 30-beam eval instruction at flagship
+        # geometry, and the no-vision-targets branch (ranking-only items
+        # off the f16 fast paths, e.g. --io_dtype float32 eval) discards it
+        probs_list = [f[2] for f in feats]
+        image_mask = np.stack([f[3] for f in feats])
+
+        image_targets_idx = None
+        if self.masked_vision and self.sparse_vision_targets:
+            (image_features, image_targets_idx, image_targets,
+             image_targets_mask) = randomize_regions_sparse_np(
+                image_features, np.stack(probs_list), image_mask,
+                self.np_rng, copy=False)
+        elif self.masked_vision:
+            image_features, image_targets, image_targets_mask = \
+                randomize_regions_np(image_features, np.stack(probs_list),
+                                     image_mask, self.np_rng, copy=False)
+        elif not self.emit_vision_targets:
+            image_targets = image_targets_mask = None
+        elif self.sparse_vision_targets:
+            s_v = image_mask.shape[-1]
+            m_cap = max_masked_regions(s_v)
+            image_targets_idx = np.full(image_mask.shape[:-1] + (m_cap,),
+                                        s_v, np.int32)
+            image_targets = np.zeros(
+                image_targets_idx.shape + (probs_list[0].shape[-1],),
+                probs_list[0].dtype)
+            image_targets_mask = np.zeros_like(image_mask)
+        else:
+            image_targets, image_targets_mask = unmasked_region_targets(
+                np.stack(probs_list), image_mask)
+        # AFTER the vision draws: np_rng order is vision-then-language
+        instr_tokens, instr_mask, instr_targets, segment_ids = \
+            self._instruction_fields(instr_tokens, nc)
+
+        if self.training:
+            ranking_target = np.int32(target)
+        else:
+            ranking_target = np.asarray(target, np.float32)
+
+        image_features = image_features.astype(self.io_dtype, copy=False)
+        targets = {} if image_targets is None else dict(
+            image_targets=image_targets.astype(self.io_dtype, copy=False),
+            **({"image_targets_idx": image_targets_idx}
+               if image_targets_idx is not None else {}),
+            image_targets_mask=image_targets_mask.astype(np.int32,
+                                                         copy=False))
+        return dict(
+            ranking_target=ranking_target,
+            image_features=image_features,
+            image_locations=image_locations,
+            image_mask=image_mask,
+            **targets,
+            instr_tokens=instr_tokens.astype(np.int32, copy=False),
+            instr_mask=instr_mask,
+            instr_targets=instr_targets.astype(np.int32, copy=False),
+            segment_ids=segment_ids,
+            opt_mask=np.ones((nc,), bool),
+            ordering_target=np.zeros((0, self.args.max_path_length),
+                                     np.int32),
+            instr_id=instr_id,
+        )

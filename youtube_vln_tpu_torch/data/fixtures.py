@@ -1,11 +1,11 @@
-"""Synthetic pretraining fixtures (the YTb and BnB builders of
-``youtube_vln_tpu/data/fixtures.py``, copied; they write the same bytes).
+"""Synthetic dataset fixtures (a copy of ``youtube_vln_tpu/data/
+fixtures.py``; every builder writes the same bytes as the JAX one).
 
-Generates a miniature, fully self-consistent copy of the artifacts the
-reference pretraining pipeline consumes (stores, caption JSONs, templates,
-frozen testsets, vocab), with the same schemas, so the pretraining path
-runs end-to-end without the real YouTube/Airbnb data.  The R2R builders
-come with the beam-eval slice.
+Generates a miniature, fully self-consistent copy of every artifact the
+reference pipeline consumes (stores, caption JSONs, templates, frozen
+testsets, R2R task + beam JSONs, connectivity graphs, distance tables,
+vocab), with the same schemas, so the entry points run end-to-end without
+the real YouTube/Airbnb/Matterport data.
 """
 from __future__ import annotations
 
@@ -248,3 +248,138 @@ def build_bnb_fixture(root, *, n_listings: int = 6, photos_per_listing: int = 8,
     return dict(caption_path=str(caption_path), store_path=str(store_path),
                 test_caption_path=str(test_caption_path),
                 testset_path=str(testset_path), vocab_path=str(vocab_path))
+
+
+def build_full_fixture(data_dir, *, seed: int = 0) -> Dict[str, str]:
+    """Assemble the canonical data-directory layout the entry points expect
+    (dataset_init.py path conventions), plus a tiny model-config JSON."""
+    data_dir = Path(data_dir)
+    ytb_dir = data_dir / "YouTube-VLN" / "ytb"
+    ytb = build_ytb_fixture(ytb_dir, seed=seed)
+    bnb = build_bnb_fixture(data_dir / "YouTube-VLN" / "bnb", seed=seed)
+    r2r = build_r2r_fixture(data_dir, seed=seed)
+
+    # relocate the YTb template skeleton to the canonical task path
+    task_skeleton = data_dir / "task" / "R2R_train_templates.json"
+    task_skeleton.write_bytes(Path(ytb["skeleton_path"]).read_bytes())
+
+    cfg_dir = data_dir / "config"
+    cfg_dir.mkdir(exist_ok=True)
+    tiny_cfg = dict(
+        vocab_size=256, hidden_size=32, num_hidden_layers=4,
+        num_attention_heads=4, intermediate_size=64,
+        v_feature_size=2048, v_target_size=1601, v_hidden_size=48,
+        v_num_hidden_layers=2, v_num_attention_heads=4,
+        v_intermediate_size=48, bi_hidden_size=48, bi_num_attention_heads=4,
+        v_biattention_id=[0, 1], t_biattention_id=[2, 3],
+        max_position_embeddings=64)
+    with open(cfg_dir / "tiny.json", "w") as fh:
+        json.dump(tiny_cfg, fh)
+
+    return dict(
+        data_dir=str(data_dir),
+        vocab_path=str(data_dir / "vocab.txt"),
+        config_file=str(cfg_dir / "tiny.json"),
+        ytb_store=ytb["store_path"],
+        bnb_store=bnb["store_path"],
+        pano_store=r2r["store_path"],
+        skeleton_path=str(task_skeleton),
+    )
+
+
+# --------------------------------------------------------------------------- #
+# R2R fixture
+# --------------------------------------------------------------------------- #
+def build_r2r_fixture(root, *, n_scans: int = 2, n_viewpoints: int = 9,
+                      n_paths: int = 5, n_beams: int = 4, path_len: int = 4,
+                      k_boxes: int = 4, seed: int = 0) -> Dict[str, str]:
+    """Connectivity graphs (grid scans), distances, R2R task JSONs, beam
+    JSONs, pano feature store, vocab.  ``k_boxes``/``n_beams``/``path_len``
+    let perf harnesses build the FLAGSHIP eval geometry (100 boxes + the
+    global row, 30 beams, 8 steps — scripts/bench_loader.py --eval)."""
+    root = Path(root)
+    (root / "connectivity").mkdir(parents=True, exist_ok=True)
+    (root / "distances").mkdir(exist_ok=True)
+    (root / "task").mkdir(exist_ok=True)
+    (root / "beamsearch").mkdir(exist_ok=True)
+    rng = random.Random(seed)
+    np_rng = np.random.default_rng(seed)
+
+    vocab_path = root / "vocab.txt"
+    write_fixture_vocab(vocab_path)
+
+    side = int(np.ceil(np.sqrt(n_viewpoints)))
+    scans = [f"scan{i}" for i in range(n_scans)]
+    pano_keys = []
+    for scan in scans:
+        items = []
+        vps = [f"{scan}_vp{j}" for j in range(n_viewpoints)]
+        coords = {vp: (j % side * 2.0, j // side * 2.0, 1.5)
+                  for j, vp in enumerate(vps)}
+        for j, vp in enumerate(vps):
+            x, y, z = coords[vp]
+            pose = [0.0] * 16
+            pose[3], pose[7], pose[11] = x, y, z
+            unobstructed = []
+            for k2, vp2 in enumerate(vps):
+                x2, y2, _ = coords[vp2]
+                unobstructed.append(
+                    k2 != j and abs(x2 - x) + abs(y2 - y) <= 2.0)
+            items.append({"image_id": vp, "pose": pose, "included": True,
+                          "unobstructed": unobstructed, "height": 1.5})
+        with open(root / "connectivity" / f"{scan}_connectivity.json",
+                  "w") as fh:
+            json.dump(items, fh)
+        pano_keys += [f"{scan}-{vp}" for vp in vps]
+
+    # distances on the graphs we just wrote (networkx's order and sums)
+    from .nav_graph import load_nav_graphs, compute_distances
+    graphs = load_nav_graphs(scans, root)
+    for scan in scans:
+        with open(root / "distances" / f"{scan}_distances.json", "w") as fh:
+            json.dump(compute_distances(graphs[scan]), fh)
+
+    store_path = root / "matterport.vlnstore"
+    write_store(store_path, pano_keys, k_boxes=k_boxes, pano=True, seed=seed)
+
+    # R2R items + beams per split
+    def random_path(scan, length, start=None):
+        g = graphs[scan]
+        node = start if start is not None else rng.choice(sorted(g.nodes()))
+        path = [node]
+        while len(path) < length:
+            nxt = rng.choice(sorted(g.neighbors(path[-1])))
+            path.append(nxt)
+        return path
+
+    for split in ("train", "val_seen", "val_unseen"):
+        items, beams = [], []
+        for p in range(n_paths):
+            scan = scans[p % n_scans]
+            gt = random_path(scan, path_len)
+            pid = 1000 * (1 + ["train", "val_seen",
+                               "val_unseen"].index(split)) + p
+            items.append({
+                "path_id": pid, "scan": scan, "heading": rng.uniform(0, 6.28),
+                "path": gt,
+                "instructions": [
+                    f"walk into the {rng.choice(ROOMS)} and stop ."
+                    for _ in range(3)],
+                "distance": float(len(gt)),
+            })
+            for instr_idx in range(3):
+                ranked = []
+                for b in range(n_beams):
+                    # real beam-search candidates share the start viewpoint
+                    bp = gt if b == 0 else random_path(scan, path_len,
+                                                       start=gt[0])
+                    ranked.append([[vp, 0.0, 0.0] for vp in bp])
+                beams.append({"instr_id": f"{pid}_{instr_idx}",
+                              "ranked_paths": ranked})
+        with open(root / "task" / f"R2R_{split}.json", "w") as fh:
+            json.dump(items, fh)
+        with open(root / "beamsearch" / f"beams_{split}.json", "w") as fh:
+            json.dump(beams, fh)
+
+    return dict(data_dir=str(root), store_path=str(store_path),
+                vocab_path=str(vocab_path))
