@@ -69,9 +69,27 @@ Phases, each fatal on failure:
      with dropout off and on, and bf16 against f32;
  12. one traced pretraining step with the epilogue knob on and one with it
      off: device time by kind, B5/B6 a kind of their own, idle share;
- 13. a ``kernels`` JSON line: per kernel its launches on the eval, the
-     fine-tuning, the pretraining and the entry path (run A), error, time,
-     bound, plain time
+ 13. the training entries at full width and depth, as users run them:
+     ``entries.train.main`` (``python -m youtube_vln_tpu_torch.entries.train``,
+     recipe 30RS, one epoch, a save after it) on ``build_r2r_fixture(
+     n_paths=16)`` (48 instructions per split, 3 steps of 16 x 6) from seed
+     weights saved as a ``.bin``; then ``--resume`` from its epoch-0
+     checkpoint; then ``--remat --profile_dir``; then
+     ``entries.pretrain.main`` (the MRT recipe, 3 Loader workers) on the YTb
+     fixture of phase 10 laid out under ``<data_dir>/YouTube-VLN/ytb``;
+     fatal: finite losses, 6 launches of each of B1-B4 per micro-step (12 of
+     B1/B2 with remat) plus 6 + 6 of B1/B2 per eval batch, none of B5/B6,
+     ``0.bin``, ``best_seen.bin`` and ``best_unseen.bin`` loaded back with no
+     missing or unexpected tensor and ``step_count`` 3, accuracies in [0, 1],
+     the resumed run running epoch 1 alone from ``step_count`` 3 to 6 at lr
+     ``schedule(3)``, remat's first-step loss equal to the run without it
+     and its peak memory lower, a profiler trace written,
+     ``best_ranking.bin`` and ``best_traj.bin`` written; prints a
+     ``train_entry`` JSON line (ms per step, trajectories/s, peak memory,
+     save seconds and bytes, load seconds, eval ms per split);
+ 14. a ``kernels`` JSON line: per kernel its launches on the eval, the
+     fine-tuning, the pretraining, the test entry (run A), the train entry
+     and the pretrain entry paths, error, time, bound, plain time
      and a library call's time at the train shapes (B1/B2 also at the eval
      shapes, B5/B6 at the pretraining shape); B1-B4 also carry the bf16
      D = 128 registers and blocks per SM, B6 those of its bf16 instance.
@@ -1625,6 +1643,311 @@ def pretrain_gradient_check(model, cfg, args, batch):
     model.train()
 
 
+@contextlib.contextmanager
+def instrumented_entries(rec):
+    """While open, the training entries report into ``rec``: every
+    ``Engine`` built (``engines``), every train step (``steps``: host ms
+    from the call to its losses on the host, the gap since the previous
+    step, the optimizer's ``step_count`` before it and the lr it takes,
+    the losses and the peak device memory so far), every training epoch
+    (``epochs``: seconds, the Loader's start included), every checkpoint
+    saved (``saves``: seconds and bytes) and loaded (``loads``: seconds)
+    and every split evaluated (``evals``: name and ms, the readback
+    included)."""
+    import torch
+    from youtube_vln_tpu_torch.parallel import train_step as ts
+    from youtube_vln_tpu_torch.training import checkpoint as ck
+    from youtube_vln_tpu_torch.training.engine import Engine
+    real = (ts.build_train_step, ck.save_checkpoint, ck.load_checkpoint,
+            Engine.evaluate, Engine.__init__, Engine.train_epoch)
+    build, save, load, evaluate, init, train_epoch = real
+
+    def build_recorded(model, cfg, args, optimizer, device="cuda"):
+        step = build(model, cfg, args, optimizer, device=device)
+
+        def recorded(batch, seed):
+            t0 = time.perf_counter()
+            before = optimizer.step_count
+            metrics = step(batch, seed)
+            losses = {k: float(v) for k, v in metrics.items() if k.startswith("loss/")}
+            t1 = time.perf_counter()
+            gap = (t0 - rec["last_end"]) * 1e3 if rec["last_end"] else None
+            rec["last_end"] = t1
+            rec["steps"].append(dict(ms=(t1 - t0) * 1e3, gap_ms=gap,
+                                     step_count=before,
+                                     lr=optimizer.schedule(before), losses=losses,
+                                     peak=torch.cuda.max_memory_allocated()))
+            return metrics
+        return recorded
+
+    def save_recorded(*a, **k):
+        t0 = time.perf_counter()
+        path = save(*a, **k)
+        rec["saves"].append(dict(s=time.perf_counter() - t0,
+                                 bytes=Path(path).stat().st_size, name=Path(path).name))
+        return path
+
+    def load_recorded(*a, **k):
+        t0 = time.perf_counter()
+        out = load(*a, **k)
+        rec["loads"].append(time.perf_counter() - t0)
+        return out
+
+    def evaluate_recorded(self, name, epoch=0):
+        t0 = time.perf_counter()
+        out = evaluate(self, name, epoch)
+        rec["evals"].append(dict(name=name, ms=(time.perf_counter() - t0) * 1e3,
+                                 out=out))
+        return out
+
+    def init_recorded(self, *a, **k):
+        init(self, *a, **k)
+        rec["engines"].append(self)
+
+    def train_epoch_recorded(self, epoch):
+        t0 = time.perf_counter()
+        train_epoch(self, epoch)
+        torch.cuda.synchronize()
+        rec["epochs"].append(time.perf_counter() - t0)
+
+    ts.build_train_step, ck.save_checkpoint, ck.load_checkpoint = (
+        build_recorded, save_recorded, load_recorded)
+    Engine.evaluate, Engine.__init__, Engine.train_epoch = (
+        evaluate_recorded, init_recorded, train_epoch_recorded)
+    try:
+        yield
+    finally:
+        (ts.build_train_step, ck.save_checkpoint, ck.load_checkpoint,
+         Engine.evaluate, Engine.__init__, Engine.train_epoch) = real
+
+
+def run_entry(main, argv):
+    """One run of a training entry with the launch counts and the peak
+    memory reset just before it: (returned value, launch counts, record)."""
+    import torch
+    rec = dict(engines=[], steps=[], epochs=[], saves=[], loads=[], evals=[],
+               last_end=None)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    with instrumented_entries(rec):
+        out = main(argv)
+    torch.cuda.synchronize()
+    launches = counts()
+    rec["wall_s"] = time.perf_counter() - t0
+    return out, launches, rec
+
+
+def check_entry_run(what, rec, launches, cfg, n_eval_batches, per_micro=(1, 1)):
+    """Fatal: finite losses, and per micro-step ``per_micro`` x (6, 6) launches
+    of B1/B2 (2 with remat: the recompute), 6 of B3/B4, plus 6 + 6 of B1/B2
+    per eval batch, none of B5/B6."""
+    import numpy as np
+    engine = rec["engines"][0]
+    micro = len(rec["steps"]) * engine.args.gradient_accumulation_steps
+    losses = [s["losses"] for s in rec["steps"]]
+    print(f"{what}: {len(rec['steps'])} steps, losses {losses}")
+    if not rec["steps"] or not all(np.isfinite(list(l.values())).all() for l in losses):
+        fail(f"{what}: no step or a non-finite loss: {losses}")
+    fwd = per_micro[0] * micro + n_eval_batches
+    want = {"attention_fwd": cfg.v_num_hidden_layers * fwd,
+            "bi_attention_fwd": len(cfg.v_biattention_id) * fwd,
+            "attention_bwd": cfg.v_num_hidden_layers * micro,
+            "bi_attention_bwd": len(cfg.v_biattention_id) * micro,
+            "epilogue_fwd": 0, "epilogue_bwd": 0}
+    print(f"launches, {what}: {launches}")
+    if launches != want:
+        fail(f"{what}: launches {launches}, expected {want}")
+
+
+def median_step_ms(rec):
+    return statistics.median(s["ms"] for s in rec["steps"][1:])
+
+
+def train_entry_path(seed):
+    """Phase 13: the training entries at full width and depth, as a user
+    runs them: ``entries.train.main`` (recipe 30RS) on an R2R fixture of 48
+    instructions per split, its ``--resume`` from the epoch-0 checkpoint, a
+    run with ``--remat --profile_dir``, and ``entries.pretrain.main`` (the
+    MRT recipe, 3 Loader workers) on the YTb fixture of phase 10.  Returns
+    the launch counts of the 30RS run and of the pretraining run."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from youtube_vln_tpu_torch import lily_base_config
+    from youtube_vln_tpu_torch.data.fixtures import build_r2r_fixture
+    from youtube_vln_tpu_torch.entries import pretrain as pretrain_entry
+    from youtube_vln_tpu_torch.entries import train as train_entry
+    from youtube_vln_tpu_torch.models import Lily
+    from youtube_vln_tpu_torch.training.checkpoint import load_checkpoint, save_checkpoint
+
+    cfg = lily_base_config()
+    with tempfile.TemporaryDirectory(prefix="train_entry_") as root:
+        root = Path(root)
+        t0 = time.perf_counter()
+        r2r = build_r2r_fixture(root / "r2r", k_boxes=BOXES - 1, n_beams=NC,
+                                path_len=L, n_paths=16, seed=seed)
+        weights = root / "lily_base_seed.bin"
+        model = Lily(cfg, device="cuda").init_weights(seed)
+        save_checkpoint(root, "lily_base_seed", model, cfg)
+        del model
+        torch.cuda.empty_cache()
+        print(f"train entry: R2R fixture of 48 instructions per split x {NC} beams, "
+              f"seed weights saved, in {time.perf_counter() - t0:.1f} s")
+
+        common = ["--device", "cuda",
+                  "--config_file", str(REPO / "configs" / "bert_base_6_layer_6_connect.json"),
+                  "--from_pretrained", str(weights), "--seed", str(seed),
+                  "--output_dir", str(root / "result")]
+        recipe = common + ["--data_dir", r2r["data_dir"], "--img_feature", r2r["store_path"],
+                           "--bert_tokenizer", r2r["vocab_path"], "--ranking",
+                           "--shuffle_visual_features", "--batch_size", str(TRAIN_B)]
+
+        # A: recipe 30RS, one epoch, a save after it
+        (best_seen, best_unseen), launches_a, rec_a = run_entry(
+            train_entry.main, recipe + ["--num_epochs", "1", "--save_epochs", "1",
+                                        "--save_name", "ft"])
+        engine = rec_a["engines"][0]
+        n_steps = len(engine.train_loader)
+        n_eval = sum(len(engine.eval_loaders[s]) for s in ("val_seen", "val_unseen"))
+        check_entry_run("train entry (30RS)", rec_a, launches_a, cfg, n_eval)
+        if len(rec_a["steps"]) != n_steps or n_steps != 3:
+            fail(f"train entry: {len(rec_a['steps'])} steps, expected 3 (48 / 16)")
+        for v in (best_seen, best_unseen):
+            if not 0.0 <= v <= 1.0:
+                fail(f"train entry: accuracy {v} outside [0, 1]")
+        data = root / "result" / "ft" / "data"
+        names = sorted(p.name for p in data.glob("*.bin"))
+        if names != ["0.bin", "best_seen.bin", "best_unseen.bin"]:
+            fail(f"train entry: checkpoints {names}")
+        for name in names:
+            t1 = time.perf_counter()
+            missing, unexpected, step, epoch = load_checkpoint(
+                data / name, engine.model, engine.optimizer)
+            load_s = time.perf_counter() - t1
+            print(f"train entry checkpoint {name}: step {step}, epoch {epoch}, "
+                  f"step_count {engine.optimizer.step_count}, loaded in {load_s:.2f} s")
+            if missing or unexpected or (step, epoch) != (3, 0) or \
+                    engine.optimizer.step_count != 3:
+                fail(f"{name}: missing {missing[:3]}, unexpected {unexpected[:3]}, "
+                     f"step {step}, epoch {epoch}, step_count "
+                     f"{engine.optimizer.step_count}")
+        del engine
+        rec_a["engines"].clear()
+        torch.cuda.empty_cache()
+
+        # B: --resume from the epoch-0 checkpoint: only epoch 1 runs
+        _, launches_b, rec_b = run_entry(
+            train_entry.main, recipe + ["--num_epochs", "2", "--save_epochs", "1",
+                                        "--skip_val", "--save_name", "ft_resume",
+                                        "--from_pretrained", str(data / "0.bin"),
+                                        "--resume"])
+        engine = rec_b["engines"][0]
+        check_entry_run("train entry, --resume", rec_b, launches_b, cfg, 0)
+        first = rec_b["steps"][0]
+        print(f"resume: start epoch {engine.start_epoch}, step_count "
+              f"{[s['step_count'] for s in rec_b['steps']]} -> "
+              f"{engine.optimizer.step_count}, first lr {first['lr']:.6e}, "
+              f"schedule(3) {engine.schedule(3):.6e}")
+        if (engine.start_epoch != 1 or len(rec_b["steps"]) != 3
+                or first["step_count"] != 3 or engine.optimizer.step_count != 6
+                or first["lr"] != engine.schedule(3)):
+            fail("train entry, --resume: not epoch 1 alone from step_count 3 at "
+                 "schedule(3) to 6")
+        del engine
+        rec_b["engines"].clear()
+        shutil.rmtree(root / "result" / "ft")
+        shutil.rmtree(root / "result" / "ft_resume")
+        torch.cuda.empty_cache()
+
+        # C: the same run as A with --remat and a profiler trace
+        trace_dir = root / "traces"
+        _, launches_c, rec_c = run_entry(
+            train_entry.main, recipe + ["--num_epochs", "1", "--skip_val", "--remat",
+                                        "--profile_dir", str(trace_dir),
+                                        "--save_name", "ft_remat"])
+        check_entry_run("train entry, --remat", rec_c, launches_c, cfg, 0, (2, 1))
+        loss_a = rec_a["steps"][0]["losses"]["loss/train"]
+        loss_c = rec_c["steps"][0]["losses"]["loss/train"]
+        peak_a = max(s["peak"] for s in rec_a["steps"])
+        peak_c = max(s["peak"] for s in rec_c["steps"])
+        traces = sorted(trace_dir.glob("*.pt.trace.json*"))
+        print(f"remat: first-step loss {loss_c!r} against {loss_a!r}; peak "
+              f"{peak_c / 2 ** 30:.2f} GiB against {peak_a / 2 ** 30:.2f}; traces "
+              f"{[(t.name, t.stat().st_size) for t in traces]}")
+        if abs(loss_c - loss_a) > 1e-6 * abs(loss_a):
+            fail("--remat changed the first step's loss")
+        if not peak_c < peak_a:
+            fail("--remat did not lower the peak device memory")
+        if not traces:
+            fail("--profile_dir wrote no trace")
+        rec_c["engines"].clear()
+        shutil.rmtree(root / "result" / "ft_remat")
+        torch.cuda.empty_cache()
+
+        # D: the MRT recipe through the pretraining entry, 3 Loader workers
+        data_dir = root / "ytb_data"
+        pre_paths, _ = pretrain_fixture(data_dir / "YouTube-VLN" / "ytb", seed)
+        best, launches_d, rec_d = run_entry(
+            pretrain_entry.main,
+            common + ["--pre_dataset", "ytb", "--prefix", "merge+", "--masked_vision",
+                      "--masked_language", "--ranking", "--traj_judge",
+                      "--batch_size", str(PRE_B), "--learning_rate", "2e-5",
+                      "--num_epochs", "1", "--data_dir", str(data_dir),
+                      "--ytb_feature", pre_paths["store_path"],
+                      "--skeleton_path", pre_paths["skeleton_path"],
+                      "--bert_tokenizer", pre_paths["vocab_path"],
+                      "--save_name", "mrt"])
+        engine = rec_d["engines"][0]
+        if engine.args.num_workers != 3:
+            fail(f"pretrain entry: {engine.args.num_workers} Loader workers, expected 3")
+        check_entry_run("pretrain entry (MRT)", rec_d, launches_d, cfg,
+                        len(engine.eval_loaders["test"]))
+        names = sorted(p.name for p in (root / "result" / "mrt" / "data").glob("*.bin"))
+        if not {"best_ranking.bin", "best_traj.bin"} <= set(names):
+            fail(f"pretrain entry: checkpoints {names}")
+        print(f"pretrain entry: best {best}, checkpoints {names}")
+        if sorted(best) != ["ranking", "traj"] or not all(
+                0.0 <= v <= 1.0 for v in best.values()):
+            fail(f"pretrain entry: best accuracies {best}")
+        rec_d["engines"].clear()
+        del engine
+
+    saves = rec_a["saves"] + rec_b["saves"] + rec_c["saves"] + rec_d["saves"]
+    print(json.dumps({
+        "train_entry": "python -m youtube_vln_tpu_torch.entries.train (30RS: --ranking "
+                       "--shuffle_visual_features --batch_size 16) and "
+                       ".entries.pretrain (MRT, 3 workers), lily_base_config, bf16",
+        "steps": {k: len(r["steps"]) for k, r in
+                  (("train", rec_a), ("resume", rec_b), ("remat", rec_c), ("pretrain", rec_d))},
+        "ms_per_step": {"train": median_step_ms(rec_a), "resume": median_step_ms(rec_b),
+                        "remat": median_step_ms(rec_c), "pretrain": median_step_ms(rec_d)},
+        "step_ms": {k: [s["ms"] for s in r["steps"]] for k, r in
+                    (("train", rec_a), ("resume", rec_b), ("remat", rec_c), ("pretrain", rec_d))},
+        "loader_gap_ms": {k: [s["gap_ms"] for s in r["steps"][1:]] for k, r in
+                          (("train", rec_a), ("pretrain", rec_d))},
+        "epoch_s": {k: r["epochs"] for k, r in
+                    (("train", rec_a), ("resume", rec_b), ("remat", rec_c), ("pretrain", rec_d))},
+        "trajectories_per_s": {"train": TRAIN_B * TRAIN_NC / median_step_ms(rec_a) * 1e3,
+                               "pretrain": PRE_B * PRE_NC / median_step_ms(rec_d) * 1e3},
+        "peak_memory_gib": {"train": peak_a / 2 ** 30, "remat": peak_c / 2 ** 30,
+                            "pretrain": max(s["peak"] for s in rec_d["steps"]) / 2 ** 30},
+        "save_s": [s["s"] for s in saves], "save_bytes": [s["bytes"] for s in saves],
+        "load_s": {"train": rec_a["loads"], "resume": rec_b["loads"],
+                   "pretrain": rec_d["loads"]},
+        "eval_ms": {f"{k}/{e['name']}": e["ms"] for k, r in (("train", rec_a), ("pretrain", rec_d))
+                    for e in r["evals"]},
+        "eval": {f"{k}/{e['name']}": e["out"] for k, r in (("train", rec_a), ("pretrain", rec_d))
+                 for e in r["evals"]},
+        "wall_s": {k: r["wall_s"] for k, r in
+                   (("train", rec_a), ("resume", rec_b), ("remat", rec_c), ("pretrain", rec_d))},
+        "first_step_loss": {"train": loss_a, "remat": loss_c}}))
+    torch.cuda.empty_cache()
+    return launches_a, launches_d
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -1657,14 +1980,18 @@ def main() -> int:
     launches_train = train_path(args.seed)
     rows.update(epilogue_kernel_checks(args.seed))
     launches_pretrain = pretrain_path(args.seed)
+    launches_train_entry, launches_pretrain_entry = train_entry_path(args.seed)
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     for name, row in rows.items():
         row["launches_eval"] = launches_eval[name]
         row["launches_train"] = launches_train[name]
         row["launches_pretrain"] = launches_pretrain[name]
         row["launches_entry"] = launches_entry[name]
+        row["launches_train_entry"] = launches_train_entry[name]
+        row["launches_pretrain_entry"] = launches_pretrain_entry[name]
         row["launches"] = (launches_eval[name] + launches_train[name]
-                           + launches_pretrain[name] + launches_entry[name])
+                           + launches_pretrain[name] + launches_entry[name]
+                           + launches_train_entry[name] + launches_pretrain_entry[name])
         if name in eval_rows:
             row["eval_shape"] = {k: eval_rows[name][k] for k in keys}
         row.update(occupancy.get(name, {}))

@@ -163,3 +163,147 @@ def test_checkpoint_paths_and_delete(tmp_path):
     pckpt.delete_checkpoint(str(tmp_path), "3")
     assert not path.exists()
     pckpt.delete_checkpoint(str(tmp_path), "3")   # absent: no error
+
+
+def _trained(port_cfg, seed, steps=2):
+    """A model and an AdamWRef that took ``steps`` steps on made-up
+    gradients: moments and step_count that differ from a fresh optimizer."""
+    from youtube_vln_tpu_torch.config import RunConfig
+    from youtube_vln_tpu_torch.parallel.train_step import create_train_state
+    model = Lily(port_cfg, device="cpu").init_weights(seed)
+    optimizer, _ = create_train_state(model, RunConfig(ranking=True), 10)
+    gen = torch.Generator().manual_seed(seed)
+    for _ in range(steps):
+        for p in model.parameters():
+            p.grad = torch.randn(p.shape, generator=gen)
+        optimizer.step()
+    return model, optimizer
+
+
+def test_save_load_round_trip(tmp_path, setup):
+    """Weights bit-equal, moments and step_count restored, the tied decoder
+    still shared, no .tmp left; without an optimizer the load leaves one
+    fresh."""
+    _, _, port_cfg = setup
+    model, optimizer = _trained(port_cfg, 1, steps=3)
+    path = pckpt.save_checkpoint(str(tmp_path), "run", model, port_cfg,
+                                 optimizer=optimizer, step=3, epoch=2)
+    assert path == pckpt.checkpoint_path(str(tmp_path), "run")
+    assert sorted(p.name for p in tmp_path.iterdir()) == ["run.bin"]
+
+    fresh, fresh_opt = _trained(port_cfg, 9, steps=0)
+    got = pckpt.load_checkpoint(path, fresh, optimizer=fresh_opt)
+    assert got == ([], [], 3, 2)
+    for (name, a), b in zip(model.state_dict().items(),
+                            fresh.state_dict().values()):
+        assert torch.equal(a, b), name
+    assert (fresh.cls.predictions.decoder.weight.data_ptr()
+            == fresh.bert.embeddings.word_embeddings.weight.data_ptr())
+    assert fresh_opt.step_count == 3
+    for p, q in zip(model.parameters(), fresh.parameters()):
+        for k in ("exp_avg", "exp_avg_sq"):
+            assert torch.equal(optimizer.state[p][k], fresh_opt.state[q][k])
+    # the next step of both is the same step
+    for p, q in zip(model.parameters(), fresh.parameters()):
+        p.grad = q.grad = torch.ones_like(p)
+    optimizer.step()
+    fresh_opt.step()
+    for p, q in zip(model.parameters(), fresh.parameters()):
+        assert torch.equal(p, q)
+
+    untouched, untouched_opt = _trained(port_cfg, 9, steps=0)
+    pckpt.load_checkpoint(path, untouched)
+    assert untouched_opt.step_count == 0 and not untouched_opt.state
+
+
+def test_saved_keys_equal_the_jax_save(tmp_path, setup):
+    """The model_state_dict key set and shapes of the JAX save_checkpoint
+    of the same config; the payload's other entries are the step, the
+    epoch and the optimizer state, which torch.load(weights_only=True)
+    reads."""
+    cfg, params, port_cfg = setup
+    model, optimizer = _trained(port_cfg, 2)
+    pckpt.save_checkpoint(str(tmp_path), "port", model, port_cfg,
+                          optimizer=optimizer, step=2, epoch=0)
+    jckpt.save_checkpoint(str(tmp_path), "jax", params, cfg, step=2, epoch=0)
+    port = torch.load(tmp_path / "port.bin", map_location="cpu",
+                      weights_only=True)
+    jax_payload = tser.load(str(tmp_path / "jax.bin"))
+    assert set(port) == {"model_state_dict", "epoch", "jax_step",
+                         "optimizer_state_dict"}
+    psd, jsd = port["model_state_dict"], jax_payload["model_state_dict"]
+    assert set(psd) == set(jsd)
+    for k in jsd:
+        assert tuple(psd[k].shape) == jsd[k].shape and psd[k].dtype == torch.float32, k
+        if "q_dense" in k:
+            assert not psd[k].any(), k
+    assert psd["cls.predictions.decoder.weight"].data_ptr() == \
+        psd["bert.embeddings.word_embeddings.weight"].data_ptr()
+    opt = port["optimizer_state_dict"]
+    names = {n for n, _ in model.named_parameters()}
+    assert opt["step_count"] == 2
+    assert set(opt["exp_avg"]) == set(opt["exp_avg_sq"]) == names
+
+
+def test_jax_load_checkpoint_reads_the_port_file(tmp_path, setup):
+    """JAX load_checkpoint (its pure-Python reader) takes the port's file:
+    the parameters equal the port model's, the optimizer entry is skipped,
+    step and epoch are read."""
+    cfg, _, port_cfg = setup
+    model, optimizer = _trained(port_cfg, 4)
+    path = pckpt.save_checkpoint(str(tmp_path), "port", model, port_cfg,
+                                 optimizer=optimizer, step=2, epoch=5)
+    missing, unexpected, step, epoch, loaded = _jax_report(path, cfg)
+    assert (missing, unexpected, step, epoch) == ([], [], 2, 5)
+    want = {k: v for k, v in model.state_dict().items()}
+    got = state_dict_from_jax_params(loaded, port_cfg)
+    assert set(got) == set(want)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+    # its reader parses the nested optimizer entry too
+    payload = tser.load(path)
+    assert payload["optimizer_state_dict"]["step_count"] == 2
+
+
+def test_jax_optimizer_state_resumes_in_the_port(tmp_path, setup):
+    """A JAX checkpoint with its pickled AdamWRef state: count becomes
+    step_count and mu / nu the moments, under the port's names."""
+    from youtube_vln_tpu.training.optimization import AdamWRefState
+    cfg, params, port_cfg = setup
+    rng = np.random.default_rng(0)
+    mu = jax.tree_util.tree_map(
+        lambda x: rng.normal(size=x.shape).astype(np.float32), params)
+    nu = jax.tree_util.tree_map(
+        lambda x: rng.random(size=x.shape).astype(np.float32), params)
+    state = AdamWRefState(count=np.asarray(6, np.int32), mu=mu, nu=nu)
+    path = jckpt.save_checkpoint(str(tmp_path), "jax", params, cfg,
+                                 opt_state=state, step=6, epoch=1)
+    model, optimizer = _trained(port_cfg, 3, steps=0)
+    assert pckpt.load_checkpoint(path, model, optimizer) == ([], [], 6, 1)
+    assert optimizer.step_count == 6
+    want_m = state_dict_from_jax_params(mu, port_cfg)
+    want_v = state_dict_from_jax_params(nu, port_cfg)
+    for name, p in model.named_parameters():
+        assert torch.equal(optimizer.state[p]["exp_avg"], want_m[name]), name
+        assert torch.equal(optimizer.state[p]["exp_avg_sq"], want_v[name]), name
+
+
+def test_disallowed_global_in_the_optimizer_blob_is_refused(tmp_path, setup):
+    cfg, params, port_cfg = setup
+    path = jckpt.save_checkpoint(str(tmp_path), "jax", params, cfg,
+                                 opt_state={"m": np.ones(3, np.float32)})
+    payload = tser.load(path)
+    # a pickle that would call os.system on load
+    payload["jax_optimizer_state"] = (b"\x80\x04\x95\x1c\x00\x00\x00\x00\x00\x00"
+                                      b"\x00\x8c\x02os\x94\x8c\x06system\x94"
+                                      b"\x93\x94\x8c\x04true\x94\x85\x94R\x94.")
+    tser.save(payload, path)
+    model, optimizer = _trained(port_cfg, 3, steps=0)
+    import pickle
+    with pytest.raises(pickle.UnpicklingError, match="os.system"):
+        pckpt.load_checkpoint(path, model, optimizer)
+    # a blob of another optimizer is refused too, by type
+    jckpt.save_checkpoint(str(tmp_path), "other", params, cfg,
+                          opt_state={"m": np.ones(3, np.float32)})
+    with pytest.raises(ValueError, match="AdamWRef"):
+        pckpt.load_checkpoint(str(tmp_path / "other.bin"), model, optimizer)

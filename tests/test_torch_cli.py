@@ -2,9 +2,11 @@
 utils/cli.py``, ``entry.py``, ``misc.py``) against the JAX package's: the
 same options with the same defaults, types, choices and actions (this pins
 the flag set without the reference repository), apart from ``--device``;
-the TPU-only flags refused at any non-default value; ``args_to_run_config``
-and ``build_model_config`` equal field for field; ``increment_path`` and
-``dump_config`` write the same folders and files."""
+the TPU-only flags not ported yet refused at any non-default value, and
+``--remat`` / ``--profile_dir`` parsed; ``args_to_run_config`` and
+``build_model_config`` equal field for field; ``increment_path``,
+``dump_config`` and ``save_code_snapshot`` write the same folders and
+files."""
 import dataclasses
 import re
 
@@ -48,17 +50,30 @@ def test_flag_set_and_defaults_equal_the_jax_parser():
         pcli.get_parser().parse_args(["--device", "tpu"])
 
 
-@pytest.mark.parametrize("flag", sorted(pcli.TPU_ONLY))
+FLAGS = {"mesh_shape": ["--mesh_shape", "2", "4"],
+         "mesh_axes": ["--mesh_axes", "data"],
+         "remat": ["--remat"],
+         "profile_dir": ["--profile_dir", "traces"],
+         "compilation_cache_dir": ["--compilation_cache_dir", "cache"],
+         "orbax_checkpoints": ["--orbax_checkpoints"]}
+PORTED = {"remat": True, "profile_dir": "traces"}
+
+
+@pytest.mark.parametrize("flag", sorted(FLAGS))
 def test_tpu_only_flags_refused_unless_default(flag):
+    """The JAX package's TPU-only flags: those not ported yet are refused at
+    any value but their default, naming the ROADMAP item that ports each;
+    the ported ones (--remat, --profile_dir) parse into RunConfig."""
     pcli.parse_run_config([])     # every default is accepted
-    value = {"mesh_shape": ["--mesh_shape", "2", "4"],
-             "mesh_axes": ["--mesh_axes", "data"],
-             "remat": ["--remat"],
-             "profile_dir": ["--profile_dir", "traces"],
-             "compilation_cache_dir": ["--compilation_cache_dir", "cache"],
-             "orbax_checkpoints": ["--orbax_checkpoints"]}[flag]
+    assert set(pcli.TPU_ONLY) == set(FLAGS) - set(PORTED)
+    if flag in PORTED:
+        _, args = pcli.parse_run_config(FLAGS[flag])
+        assert getattr(args, flag) == PORTED[flag]
+        _, jargs = jcli.parse_run_config(FLAGS[flag])
+        assert getattr(jargs, flag) == PORTED[flag]
+        return
     with pytest.raises(ValueError, match=rf"--{flag} .*ROADMAP.md Queue A item A\d+"):
-        pcli.parse_run_config(value)
+        pcli.parse_run_config(FLAGS[flag])
     # the default spelled out is still accepted
     if flag == "mesh_axes":
         pcli.parse_run_config(["--mesh_axes", "data", "model"])
@@ -75,6 +90,8 @@ RECIPES = [
      "--dense_task_heads", "--compute_dtype", "float32", "--host_prefetch", "3"],
     ["--dedup_candidates", "--save_name", "run", "--note", "n", "--mini",
      "--resume", "--save_epochs", "2", "--ground_truth_trajectory", "true"],
+    ["--ranking", "--remat", "--profile_dir", "traces", "--gradient_accumulation_steps",
+     "2", "--lr_schedule", "warmup_cosine"],
 ]
 
 
@@ -87,10 +104,10 @@ def test_run_config_and_model_config_equal_jax(argv, tmp_path):
     assert pfields.pop("use_attention_kernels") == jfields["use_pallas_attention"]
     for name, value in pfields.items():
         assert value == jfields[name], name
-    # the fields the port leaves out are the TPU-only ones
+    # the fields the port leaves out are the TPU-only ones not ported yet
     assert set(jfields) - set(pfields) == {
-        "use_pallas_attention", "mesh_shape", "mesh_axes", "remat",
-        "profile_dir", "compilation_cache_dir", "orbax_checkpoints"}
+        "use_pallas_attention", "mesh_shape", "mesh_axes",
+        "compilation_cache_dir", "orbax_checkpoints"}
 
     for config_file in (str(tmp_path / "absent.json"), "configs/bert_base_6_layer_6_connect.json"):
         jargs.config_file = pargs.config_file = config_file
@@ -125,3 +142,25 @@ def test_increment_path_and_dump_config_agree(tmp_path):
     assert pcli.boolean_string("true") and not pcli.boolean_string("0")
     with pytest.raises(ValueError):
         pcli.boolean_string("yes")
+
+
+def test_code_snapshot_equals_jax(tmp_path, monkeypatch):
+    """The same .py files zipped, the ignored directories pruned, and the
+    same rerun script; NoneLogger takes and drops what a logger takes."""
+    import zipfile
+    tree = tmp_path / "tree"
+    for rel in ("a.py", "pkg/b.py", "pkg/notes.txt", "data/c.py",
+                "result/d.py", "pkg/__pycache__/e.py"):
+        (tree / rel).parent.mkdir(parents=True, exist_ok=True)
+        (tree / rel).write_text(rel)
+    monkeypatch.chdir(tree)
+    listings = []
+    for mod, out in ((jmisc, tmp_path / "j"), (pmisc, tmp_path / "p")):
+        zip_path = mod.save_code_snapshot(out)
+        with zipfile.ZipFile(zip_path) as zf:
+            listings.append(sorted(zf.namelist()))
+        listings.append((out / "sh_n_codes" / "rerun.sh").read_text())
+    assert listings[0] == listings[2] == ["a.py", "pkg/b.py"]
+    assert listings[1] == listings[3]
+    for logger in (pmisc.NoneLogger(), jmisc.NoneLogger()):
+        assert logger.info("x", 1, k=2) is None and logger.warning("y") is None

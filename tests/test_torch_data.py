@@ -3,7 +3,8 @@ data/*, ops/masking.py) against the JAX package's (youtube_vln_tpu/data/*,
 ops/masking.py): the fixtures write the same bytes, the store, readers
 and tokenizer return the same arrays, and the YTb/BnB items, collated
 batches and Loader batches are equal, dtypes included, for the same seeds.
-Each package reads its own fixture."""
+Each package reads its own fixture.  The port's worker pool delivers every
+item through its shared-memory slabs."""
 import filecmp
 
 import numpy as np
@@ -275,3 +276,31 @@ def test_masking_functions_draw_the_same_masks():
         assert np.array_equal(a, b)
     for s in (1, 20, 101, 808, 1000):
         assert pmask.max_masked_regions(s) == jmask.max_masked_regions(s)
+
+
+class _Items:
+    """48 small items of one candidate each: per-item work is trivial, so
+    any wait in the worker pool is the transport's."""
+
+    def __len__(self):
+        return 48
+
+    def num_candidates(self):
+        return 1
+
+    def __getitem__(self, i):
+        return {"opt_mask": np.ones(1, bool),
+                "image_features": np.full((1, 4, 8), i, np.float16),
+                "ranking_target": np.asarray(0, np.int32)}
+
+
+def test_worker_pool_never_runs_out_of_slots():
+    """Batches of 16 from 3 workers over the shared-memory slabs: every item
+    arrives through a slab (none falls back to pickling for want of a free
+    slot), and the batches hold the items in order."""
+    loader = ploader.Loader(_Items(), 16, shuffle=False, drop_last=True,
+                            num_workers=3)
+    batches = list(loader)
+    assert loader.shm_fallbacks == 0, loader.shm_fallbacks_by_reason
+    got = np.concatenate([b["image_features"][:, 0, 0, 0] for b in batches])
+    np.testing.assert_array_equal(got, np.arange(48))

@@ -27,7 +27,7 @@ for module in ("device", "ops.philox", "ops.epilogue", "ops.masking",
                "data.loader", "data.fixtures", "data.nav_graph",
                "evaluation.metrics", "training.engine", "training.checkpoint",
                "utils.cli", "utils.entry", "utils.misc", "entries.test",
-               "entries.calculate_metrics"):
+               "entries.calculate_metrics", "entries.train", "entries.pretrain"):
     assert pkg.__name__ + "." + module in names, module
 
 import os, tempfile
@@ -36,7 +36,10 @@ from youtube_vln_tpu_torch import tiny_config
 from youtube_vln_tpu_torch.config import RunConfig
 from youtube_vln_tpu_torch.evaluation import beam_eval
 from youtube_vln_tpu_torch.models import Lily
+from youtube_vln_tpu_torch.entries import pretrain as pretrain_entry
 from youtube_vln_tpu_torch.entries import test as test_entry
+from youtube_vln_tpu_torch.entries import train as train_entry
+from youtube_vln_tpu_torch.training.engine import Engine
 from youtube_vln_tpu_torch.parallel import train_step
 cfg = tiny_config()
 args = RunConfig(ranking=True)
@@ -49,7 +52,13 @@ for call in (lambda: beam_eval.eval_epoch(model, cfg, []),
              lambda: train_step.build_eval_step(model, cfg, args),
              # the device is resolved before any data is read: no data here
              lambda: test_entry.main(["--split", "val_unseen", "--data_dir",
-                                      "absent", "--output_dir", out])):
+                                      "absent", "--output_dir", out]),
+             lambda: train_entry.main(["--ranking", "--data_dir", "absent",
+                                       "--output_dir", out]),
+             lambda: pretrain_entry.main(["--final", "--ranking", "--pre_dataset",
+                                          "ytb", "--data_dir", "absent",
+                                          "--output_dir", out]),
+             lambda: Engine(RunConfig(ranking=True, data_dir="absent"), cfg)):
     try:
         call()
     except RuntimeError as e:
@@ -58,7 +67,7 @@ for call in (lambda: beam_eval.eval_epoch(model, cfg, []),
         raise SystemExit("an entry point ran without CUDA and without device='cpu'")
 assert beam_eval.eval_epoch(model, cfg, [], device="cpu") == []
 train_step.build_train_step(model, cfg, args, optimizer, device="cpu")
-assert not os.listdir(out), "the test entry wrote output before it refused"
+assert not os.listdir(out), "an entry wrote output before it refused"
 print("isolated")
 """
 

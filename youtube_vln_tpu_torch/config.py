@@ -8,8 +8,7 @@ ignored.  Differences from the JAX copy:
   * ``compute_dtype`` defaults to ``"bfloat16"``, the eval default of the
     JAX run configuration (``RunConfig.compute_dtype``); pass ``"float32"``
     for parity runs.
-  * ``use_attention_kernels`` replaces ``use_pallas_attention`` (``remat``
-    has no counterpart): it routes the vision self-attention and the
+  * ``use_attention_kernels`` replaces ``use_pallas_attention``: it routes the vision self-attention and the
     co-attention layers through the hand-written CUDA kernels of
     ``ops/attention.py``.
   * ``use_epilogue_kernels`` is the counterpart of ``use_pallas_epilogue``
@@ -19,12 +18,14 @@ ignored.  Differences from the JAX copy:
     that ``ops/epilogue.py:use_epilogue_kernel_for`` selects (train mode,
     the 24 vision-stream sites of the flagship pretraining step) run the
     CUDA kernels B5/B6.
+  * ``remat`` recomputes each encoder block in the backward with
+    ``torch.utils.checkpoint`` where the JAX package uses ``jax.checkpoint``.
 
 ``RunConfig`` copies the fields of ``youtube_vln_tpu/config.py:RunConfig``
 that the train step, the datasets, the loader and the command line read,
 with the same defaults and the ``validate`` checks that concern them; the
-TPU-only ones (mesh, remat, compilation cache, profiler, Orbax) have no
-counterpart, and ``utils/cli.py`` refuses their flags.
+ones not ported yet (mesh, compilation cache, Orbax) are left out, and
+``utils/cli.py`` refuses their flags.
 """
 from __future__ import annotations
 
@@ -85,6 +86,8 @@ class LilyConfig:
     compute_dtype: str = "bfloat16"     # "float32" | "bfloat16"
     use_attention_kernels: bool = True  # CUDA kernels B1-B4 (ops/attention.py)
     use_epilogue_kernels: bool = False  # CUDA kernels B5/B6 (ops/epilogue.py)
+    remat: bool = False                 # recompute each encoder block in
+                                        # the backward (models/vilbert.py)
 
     def __post_init__(self):
         self.v_biattention_id = tuple(self.v_biattention_id)
@@ -270,6 +273,10 @@ class RunConfig:
                                         # (viewpoint, heading, step) pano
                                         # block once + a per-beam step
                                         # index, expanded on the device
+    remat: bool = False                 # recompute each encoder block in
+                                        # the backward
+    profile_dir: str = ""               # torch.profiler trace of steps
+                                        # 2-8 of the first epoch
     host_prefetch: int = 2              # batches copied ahead of their use
 
     def __post_init__(self):

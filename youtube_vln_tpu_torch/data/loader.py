@@ -15,11 +15,12 @@ distributed.py:156-180``) with:
     assemble numpy items and never call into torch
 
 Batches are dicts of numpy arrays; ``build_train_step`` moves them to the
-device (``device.to_device``), and ``evaluation/beam_eval.py:
-prefetch_to_device`` overlaps that copy with the previous step.
+device (``device.to_device``), and ``device.prefetch_to_device``
+overlaps that copy with the previous step.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import logging
@@ -59,7 +60,6 @@ def _tune_malloc_for_large_buffers() -> None:
 _WORKER_DATASET = None
 _WORKER_SEED = 0
 _WORKER_SLABS = None      # list of multiprocessing.shared_memory.SharedMemory
-_WORKER_FREE_Q = None     # queue of free slab indices
 
 
 def _item_seed(seed: int, epoch: int, idx: int) -> int:
@@ -100,27 +100,17 @@ def _pack_into_slab(item, slab) -> Optional[list]:
     return schema
 
 
-def _fetch_shm(task):
-    """Worker: build the item, write it into a free shared-memory slab and
-    return only (slot, schema).  Falls back to pickling the item when it
-    exceeds the slab size — or when no slot frees up in time: imap hands
-    results to the parent IN ORDER, so a fast worker can park many
-    completed-but-unconsumed items on slots while the parent waits for a
-    slow worker's next-in-order item; if that slow worker then blocked
-    here on an empty free queue nothing would ever be released (deadlock).
-    Degrading to pickle keeps the pipeline moving and is counted loudly
-    by the parent (shm_fallbacks)."""
+def _fetch_shm(task, slot):
+    """Worker: build the item, write it into slab ``slot`` (handed out by
+    the parent, which owns the free list) and return only the schema.
+    Falls back to pickling the item when it exceeds the slab size,
+    counted loudly by the parent (shm_fallbacks)."""
     epoch, idx = task
     item = _get_item(epoch, idx)
-    try:
-        slot = _WORKER_FREE_Q.get(timeout=5.0)
-    except queue.Empty:
-        return ("pickle", "slot_timeout", item)
     schema = _pack_into_slab(item, _WORKER_SLABS[slot])
     if schema is None:
-        _WORKER_FREE_Q.put(slot)
         return ("pickle", "slab_overflow", item)
-    return ("shm", slot, schema)
+    return ("shm", schema, None)
 
 
 def _unpack_from_slab(slab, schema):
@@ -259,9 +249,7 @@ class Loader:
         # pickle fallbacks off the shared-memory transport, kept loud on
         # purpose (each is a ~40-90 MB pickle on the hot path) and COUNTED
         # BY CAUSE: "slab_overflow" means the slab probe under-sized the
-        # slots (a sizing bug — tests pin this at zero), "slot_timeout" is
-        # the documented imap slot-starvation degrade (free-queue timeout
-        # under CPU contention; delivers identical data, just slower)
+        # slots
         self.shm_fallbacks = 0
         self.shm_fallbacks_by_reason: Dict[str, int] = {}
         self._slab_bytes: Optional[int] = None  # probe once, not per epoch
@@ -330,16 +318,16 @@ class Loader:
         reseeds the dataset RNGs per item.
 
         Transport: with use_shared_memory (default) workers write arrays
-        into preallocated SharedMemory slabs and send only (slot, schema)
-        through the result pipe — no pickling of the ~40-90 MB items.
-        Slots are recycled after collation copies the views."""
-        global _WORKER_DATASET, _WORKER_SEED, _WORKER_SLABS, _WORKER_FREE_Q
+        into preallocated SharedMemory slabs, one per task, handed out by
+        the parent, and send only the schema through the result pipe — no
+        pickling of the ~40-90 MB items.  Slots are recycled after
+        collation copies the views."""
+        global _WORKER_DATASET, _WORKER_SEED, _WORKER_SLABS
         order = self._order()
         ctx = mp.get_context("fork")
         _WORKER_DATASET = self.dataset
         _WORKER_SEED = self.seed
         tasks = [(self.epoch, int(i)) for i in order]
-        chunk = max(1, self.batch_size // self.num_workers)
 
         slabs = []
         if self.use_shared_memory and tasks:
@@ -366,51 +354,67 @@ class Loader:
                     for i in probe_idx))
             slab_bytes = self._slab_bytes
             n_slots = self.num_workers + self.batch_size + 2
-            free_q = ctx.Queue()
             for i in range(n_slots):
                 slabs.append(shared_memory.SharedMemory(
                     create=True, size=slab_bytes))
-                free_q.put(i)
             _WORKER_SLABS = slabs
-            _WORKER_FREE_Q = free_q
 
         try:
             with ctx.Pool(self.num_workers) as pool:
                 if slabs:
+                    # the parent hands out the slots, a task only when one
+                    # is free and in task order: workers never wait for a
+                    # slot, and the next item in order always has one (a
+                    # worker-side free queue starves when workers that run
+                    # ahead hold every slot while the parent waits for the
+                    # in-order item)
+                    free = list(range(len(slabs)))
+                    pending = collections.deque()
+                    todo = iter(tasks)
+
+                    def submit():
+                        while free:
+                            task = next(todo, None)
+                            if task is None:
+                                return
+                            slot = free.pop()
+                            pending.append((pool.apply_async(
+                                _fetch_shm, (task, slot)), slot))
+
+                    submit()
                     buf: List[Dict] = []
                     used_slots: List[int] = []
-                    for res in pool.imap(_fetch_shm, tasks, chunksize=chunk):
-                        if res[0] == "shm":
-                            _, slot, schema = res
-                            buf.append(_unpack_from_slab(slabs[slot], schema))
+                    while pending:
+                        res, slot = pending.popleft()
+                        kind, payload, item = res.get()
+                        if kind == "shm":
+                            buf.append(_unpack_from_slab(slabs[slot], payload))
                             used_slots.append(slot)
                         else:
-                            _, reason, item = res
                             self.shm_fallbacks += 1
-                            self.shm_fallbacks_by_reason[reason] = \
-                                self.shm_fallbacks_by_reason.get(reason,
+                            self.shm_fallbacks_by_reason[payload] = \
+                                self.shm_fallbacks_by_reason.get(payload,
                                                                  0) + 1
-                            # warn once PER CAUSE: a benign slot_timeout
-                            # must not swallow a later slab_overflow (the
-                            # sizing bug this split exists to expose)
-                            if self.shm_fallbacks_by_reason[reason] == 1:
+                            if self.shm_fallbacks_by_reason[payload] == 1:
                                 logging.getLogger(__name__).warning(
                                     "loader fell back to pickle transport "
                                     "(%s; slab %d bytes) — a performance "
                                     "cliff (loader.shm_fallbacks_by_reason "
-                                    "counts occurrences by cause)", reason,
-                                    slabs[0].size if slabs else -1)
+                                    "counts occurrences by cause)", payload,
+                                    slabs[0].size)
                             buf.append(item)
+                            free.append(slot)
                         if len(buf) == self.batch_size:
                             yield collate(buf, self.nc, self.with_instr_id, self.nc_uniq)
                             buf = []
-                            for s in used_slots:
-                                free_q.put(s)
+                            free.extend(used_slots)
                             used_slots = []
+                        submit()
                     if buf and not self.drop_last:
                         yield collate(buf, self.nc, self.with_instr_id, self.nc_uniq)
                 else:
                     buf = []
+                    chunk = max(1, self.batch_size // self.num_workers)
                     for item in pool.imap(_fetch, tasks, chunksize=chunk):
                         buf.append(item)
                         if len(buf) == self.batch_size:
@@ -429,7 +433,6 @@ class Loader:
                 except Exception:
                     pass
             _WORKER_SLABS = None
-            _WORKER_FREE_Q = None
 
 
 def microbatch_reshape(batch: Dict[str, np.ndarray], accum: int

@@ -1,7 +1,8 @@
 """Where the port's entry points run, and how batches get there."""
 from __future__ import annotations
 
-from typing import Dict
+import collections
+from typing import Dict, Iterable, Iterator
 
 import numpy as np
 import torch
@@ -32,3 +33,22 @@ def to_device(batch: Dict[str, np.ndarray], device: torch.device
                 t = t.to(device)
         out[k] = t
     return out
+
+
+def prefetch_to_device(batches: Iterable[Dict[str, np.ndarray]],
+                       device: torch.device, depth: int = 2
+                       ) -> Iterator[Dict[str, torch.Tensor]]:
+    """Starts the copies of up to ``depth`` batches ahead of their use, so
+    the host-to-device transfer overlaps the work on earlier batches."""
+    buf = collections.deque()
+    it = iter(batches)
+    for b in it:
+        buf.append(to_device(b, device))
+        if len(buf) >= depth:
+            break
+    while buf:
+        out = buf.popleft()
+        for b in it:
+            buf.append(to_device(b, device))
+            break
+        yield out

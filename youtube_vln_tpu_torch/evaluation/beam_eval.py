@@ -10,36 +10,16 @@ step-dedup transport, with ``instr_id`` [B, 2].
 """
 from __future__ import annotations
 
-import collections
 import json
-from typing import Callable, Dict, Iterable, Iterator, List, Tuple
+from typing import Callable, Dict, Iterable, List, Tuple
 
 import numpy as np
 import torch
 
 from ..config import LilyConfig
-from ..device import resolve_device, to_device
+from ..device import prefetch_to_device, resolve_device, to_device
 from ..parallel.train_step import expand_beam_steps, flatten_candidates
 from ..training.losses import pad_packed
-
-
-def prefetch_to_device(batches: Iterable[Dict[str, np.ndarray]],
-                       device: torch.device, depth: int = 2
-                       ) -> Iterator[Dict[str, torch.Tensor]]:
-    """Starts the copies of up to ``depth`` batches ahead of their use, so
-    the host-to-device transfer overlaps the scoring of earlier batches."""
-    buf = collections.deque()
-    it = iter(batches)
-    for b in it:
-        buf.append(to_device(b, device))
-        if len(buf) >= depth:
-            break
-    while buf:
-        out = buf.popleft()
-        for b in it:
-            buf.append(to_device(b, device))
-            break
-        yield out
 
 
 def build_score_step(model: torch.nn.Module, cfg: LilyConfig,

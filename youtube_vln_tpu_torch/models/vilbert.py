@@ -14,7 +14,9 @@ co-attention layer kernel B2 (``ops/attention.py``) when
 LayerNorm sites of train mode run B5, with B6 as their gradient
 (``models/layers.py:dropout_add_ln``).  In
 train mode ``Lily.forward`` takes a 64-bit ``seed`` and applies the JAX
-package's dropout at the same sites and rates (``models/layers.py``).
+package's dropout at the same sites and rates (``models/layers.py``);
+``cfg.remat`` recomputes each encoder block in the backward
+(``Encoder._block``).
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..config import LilyConfig
 from ..ops.attention import (bi_attention_reference, fused_bi_attention,
@@ -209,6 +212,27 @@ class Encoder(nn.Module):
             ConnectionLayer(cfg, device=device)
             for _ in range(len(cfg.v_biattention_id)))
 
+    def _block(self, layer, rng, *xs):
+        """``layer(*xs, rng)``; with ``cfg.remat``, in train mode under
+        autograd, recomputed in the backward (``torch.utils.checkpoint``,
+        the JAX package's ``jax.checkpoint``) instead of keeping its
+        activations.  The recompute restarts the block's randomness where
+        the forward found it, the kernel-seed counter of ``rng`` and the
+        state of its generator, so both passes draw the same dropout masks
+        (``preserve_rng_state`` saves only the default generators, which no
+        site draws from)."""
+        if not (self.cfg.remat and rng is not None and torch.is_grad_enabled()):
+            return layer(*xs, rng)
+        sites, state = rng.sites, rng.generator.get_state()
+
+        def replay(*inputs):
+            rng.sites = sites
+            rng.generator.set_state(state)
+            return layer(*inputs, rng)
+
+        return checkpoint(replay, *xs, use_reentrant=False,
+                          preserve_rng_state=False)
+
     def forward(self, t_x, v_x, t_bias, v_bias, rng=None):
         cfg = self.cfg
         v_start, t_start = 0, 0
@@ -216,15 +240,15 @@ class Encoder(nn.Module):
                 zip(cfg.v_biattention_id, cfg.t_biattention_id)):
             # frozen prefixes (the JAX package's stop_gradient)
             for idx in range(v_start, min(cfg.fixed_v_layer, v_end)):
-                v_x = self.v_layer[idx](v_x, v_bias, rng).detach()
+                v_x = self._block(self.v_layer[idx], rng, v_x, v_bias).detach()
                 v_start = cfg.fixed_v_layer
             for idx in range(v_start, v_end):
-                v_x = self.v_layer[idx](v_x, v_bias, rng)
+                v_x = self._block(self.v_layer[idx], rng, v_x, v_bias)
             for idx in range(t_start, min(cfg.fixed_t_layer, t_end)):
-                t_x = self.layer[idx](t_x, t_bias, rng).detach()
+                t_x = self._block(self.layer[idx], rng, t_x, t_bias).detach()
                 t_start = cfg.fixed_t_layer
             for idx in range(t_start, t_end):
-                t_x = self.layer[idx](t_x, t_bias, rng)
+                t_x = self._block(self.layer[idx], rng, t_x, t_bias)
 
             if count == 0 and cfg.in_batch_pairs:
                 # batch^2 expansion: every text paired with every image
@@ -239,13 +263,14 @@ class Encoder(nn.Module):
                 t_bias = t_bias.expand(n, -1)
 
             if cfg.with_coattention:
-                v_x, t_x = self.c_layer[count](v_x, v_bias, t_x, t_bias, rng)
+                v_x, t_x = self._block(self.c_layer[count], rng, v_x, v_bias,
+                                       t_x, t_bias)
             v_start, t_start = v_end, t_end
 
         for idx in range(v_start, cfg.v_num_hidden_layers):
-            v_x = self.v_layer[idx](v_x, v_bias, rng)
+            v_x = self._block(self.v_layer[idx], rng, v_x, v_bias)
         for idx in range(t_start, cfg.num_hidden_layers):
-            t_x = self.layer[idx](t_x, t_bias, rng)
+            t_x = self._block(self.layer[idx], rng, t_x, t_bias)
         return t_x, v_x
 
 

@@ -335,8 +335,11 @@ class FusedAttentionFn(torch.autograd.Function):
             grads = attention_bwd_reference(q, k, v, bias, do, ctx.rate,
                                             ctx.seed)
         else:
-            grads = _attention_bwd(*ctx.saved_tensors[:5], do,
-                                   ctx.saved_tensors[5], ctx.rate, ctx.seed)
+            # read once: activation checkpointing (--remat) unpacks each
+            # saved tensor a single time
+            q, k, v, bias, out, lse = ctx.saved_tensors
+            grads = _attention_bwd(q, k, v, bias, out, do, lse, ctx.rate,
+                                   ctx.seed)
         return (*grads, None, None, None)
 
 

@@ -1,30 +1,45 @@
-"""Checkpoint loading (the read side of ``youtube_vln_tpu/training/
-checkpoint.py``).
+"""Checkpoints (counterpart of ``youtube_vln_tpu/training/checkpoint.py``).
 
-Reads a torch ``.bin`` in the reference layout (``utils/utils_init.py:
-277-295``) with ``torch.load(weights_only=True)``: the JAX package's own
-checkpoints (``model_state_dict`` plus ``epoch``, ``jax_step`` and the
-pickled ``jax_optimizer_state``, which is left unread), reference
+``save_checkpoint`` writes a torch ``.bin`` in the reference layout
+(``utils/utils_init.py:277-295``), atomically (a ``.tmp`` sibling, then a
+rename): ``model_state_dict`` with the key set of the JAX package's
+``save_checkpoint`` (the tied MLM decoder weight sharing the word
+embedding's storage, and the zero ``biOutput.q_dense1`` / ``q_dense2``
+tensors that the reference's forward never reads), ``epoch``, ``jax_step``
+(the name the JAX reader takes the step from) and, with an optimizer,
+``optimizer_state_dict``: ``step_count`` and the moments ``exp_avg`` /
+``exp_avg_sq`` keyed by reference parameter names.  The JAX package's
+``load_checkpoint`` reads such a file and skips the optimizer entry.
+
+``load_checkpoint`` reads with ``torch.load(weights_only=True)`` the port's
+own files, the JAX package's (``model_state_dict`` plus ``epoch``,
+``jax_step`` and the pickled ``jax_optimizer_state``), reference
 checkpoints, and ViLBERT dumps without the ``bert.`` prefix or with
 gamma/beta names (vilbert/vilbert.py:1098-1160).  The load into a ``Lily``
 follows the JAX per-tensor non-strict rule (``models/torch_io.py:
 state_dict_to_params``): a tensor missing from the file keeps its
-initialisation, and the tied MLM decoder weight is never read.
-
-Saving, the optimizer state and resume come with the engine.
+initialisation, and the tied MLM decoder weight is never read.  Given an
+optimizer, it also restores the moments and ``step_count``, from the
+port's ``optimizer_state_dict`` or from a JAX ``jax_optimizer_state``
+(unpickled with an allow-list; its ``mu`` / ``nu`` trees cross over as the
+weights do), so that a run begun on a TPU resumes here.
 """
 from __future__ import annotations
 
+import io
 import logging
 import os
+import pickle
 import shutil
 import tarfile
 import tempfile
-from typing import List, Optional, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
-from ..models.weights import _key_map, normalize_state_dict
+from ..config import LilyConfig
+from ..models.weights import (_key_map, normalize_state_dict,
+                              state_dict_from_jax_params)
 
 logger = logging.getLogger(__name__)
 
@@ -34,8 +49,137 @@ _EXTRAS = ("epoch", "jax_step", "jax_optimizer_state",
 _TIED = "cls.predictions.decoder.weight"
 
 
+class AdamWRefState(NamedTuple):
+    """The JAX package's optimizer state (``training/optimization.py:134``):
+    the step count and the first and second moments, trees of the
+    parameters' shape."""
+    count: Any
+    mu: Any
+    nu: Any
+
+
+# the globals a JAX ``jax_optimizer_state`` blob may reference (JAX
+# ``checkpoint.py:44-78``): numpy array and scalar reconstruction, the dict
+# containers and the optimizer state, which maps to the copy above
+_JAX_OPT_STATE = ("youtube_vln_tpu.training.optimization", "AdamWRefState")
+_OPT_STATE_ALLOWED = {
+    ("numpy", "ndarray"),
+    ("numpy", "dtype"),
+    ("numpy.core.multiarray", "_reconstruct"),
+    ("numpy._core.multiarray", "_reconstruct"),
+    ("numpy.core.multiarray", "scalar"),
+    ("numpy._core.multiarray", "scalar"),
+    ("numpy.dtypes", "Float32DType"),
+    ("numpy.dtypes", "Int32DType"),
+    ("collections", "OrderedDict"),
+}
+
+
+class _OptStateUnpickler(pickle.Unpickler):
+    """Allow-listed unpickler for the ``jax_optimizer_state`` blob: a plain
+    ``pickle.loads`` would run whatever a crafted payload names."""
+
+    def find_class(self, module, name):
+        if (module, name) == _JAX_OPT_STATE:
+            return AdamWRefState
+        if (module, name) in _OPT_STATE_ALLOWED or (
+                module.startswith("numpy.dtypes") and name.endswith("DType")):
+            return super().find_class(module, name)
+        raise pickle.UnpicklingError(
+            f"jax_optimizer_state references disallowed global "
+            f"'{module}.{name}'")
+
+
+def _loads_opt_state(data: bytes):
+    return _OptStateUnpickler(io.BytesIO(data)).load()
+
+
 def checkpoint_path(save_dir, save_name) -> str:
     return os.path.join(save_dir, f"{save_name}.bin")
+
+
+def model_state_dict(model: torch.nn.Module, cfg: LilyConfig
+                     ) -> Dict[str, torch.Tensor]:
+    """The weights as the JAX ``params_to_state_dict`` exports them
+    (``models/torch_io.py:172-203``), f32 on the host: the tied decoder
+    weight is the word embedding's tensor, and the dead ``q_dense``
+    entries are zeros."""
+    sd = {k: v.detach().to("cpu", torch.float32).contiguous()
+          for k, v in model.state_dict().items()}
+    sd[_TIED] = sd["bert.embeddings.word_embeddings.weight"]
+    for i in range(len(cfg.v_biattention_id)):
+        p = f"bert.encoder.c_layer.{i}.biOutput"
+        sd[f"{p}.q_dense1.weight"] = torch.zeros(cfg.v_hidden_size,
+                                                 cfg.bi_hidden_size)
+        sd[f"{p}.q_dense1.bias"] = torch.zeros(cfg.v_hidden_size)
+        sd[f"{p}.q_dense2.weight"] = torch.zeros(cfg.hidden_size,
+                                                 cfg.bi_hidden_size)
+        sd[f"{p}.q_dense2.bias"] = torch.zeros(cfg.hidden_size)
+    return sd
+
+
+def _flat_params(optimizer) -> List[torch.nn.Parameter]:
+    return [p for g in optimizer.param_groups for p in g["params"]]
+
+
+def optimizer_state_by_name(model: torch.nn.Module, optimizer
+                            ) -> Dict[str, Any]:
+    """``step_count`` and the moments of ``optimizer`` (an ``AdamWRef``)
+    keyed by reference parameter names, f32 on the host."""
+    names = {id(p): n for n, p in model.named_parameters()}
+    state = optimizer.state_dict()
+    flat = _flat_params(optimizer)
+    out: Dict[str, Any] = {"step_count": state["step_count"],
+                           "exp_avg": {}, "exp_avg_sq": {}}
+    for i, moments in state["state"].items():
+        for k in ("exp_avg", "exp_avg_sq"):
+            out[k][names[id(flat[i])]] = moments[k].detach().to(
+                "cpu", torch.float32).contiguous()
+    return out
+
+
+def load_optimizer_state_by_name(model: torch.nn.Module, optimizer,
+                                 state: Dict[str, Any]) -> None:
+    """The inverse of ``optimizer_state_by_name``: moments of the names in
+    ``state``; a parameter absent there starts with none."""
+    index = {id(p): i for i, p in enumerate(_flat_params(optimizer))}
+    moments = {}
+    for name, p in model.named_parameters():
+        if id(p) in index and name in state["exp_avg"]:
+            moments[index[id(p)]] = {k: state[k][name]
+                                     for k in ("exp_avg", "exp_avg_sq")}
+    current = optimizer.state_dict()
+    optimizer.load_state_dict({"state": moments,
+                               "param_groups": current["param_groups"],
+                               "step_count": int(state["step_count"])})
+
+
+def _from_jax_opt_state(blob: bytes, cfg: LilyConfig) -> Dict[str, Any]:
+    """A JAX ``jax_optimizer_state`` blob in the form of
+    ``optimizer_state_by_name``."""
+    opt = _loads_opt_state(blob)
+    if not isinstance(opt, AdamWRefState):
+        raise ValueError(f"jax_optimizer_state holds a {type(opt).__name__}, "
+                         "not the AdamWRef state")
+    return {"step_count": int(opt.count),
+            "exp_avg": state_dict_from_jax_params(opt.mu, cfg),
+            "exp_avg_sq": state_dict_from_jax_params(opt.nu, cfg)}
+
+
+def save_checkpoint(save_dir, save_name, model: torch.nn.Module,
+                    cfg: LilyConfig, optimizer=None, step: int = 0,
+                    epoch: int = 0) -> str:
+    """Writes ``<save_dir>/<save_name>.bin`` and returns its path."""
+    path = checkpoint_path(save_dir, save_name)
+    payload: Dict[str, Any] = {"model_state_dict": model_state_dict(model, cfg),
+                               "epoch": int(epoch), "jax_step": int(step)}
+    if optimizer is not None:
+        payload["optimizer_state_dict"] = optimizer_state_by_name(model,
+                                                                  optimizer)
+    tmp = f"{path}.tmp"
+    torch.save(payload, tmp)
+    os.replace(tmp, path)
+    return path
 
 
 def resolve_pretrained(path) -> Tuple[str, Optional[str]]:
@@ -71,13 +215,16 @@ def resolve_pretrained(path) -> Tuple[str, Optional[str]]:
 
 
 @torch.no_grad()
-def load_checkpoint(path, model: torch.nn.Module
+def load_checkpoint(path, model: torch.nn.Module, optimizer=None
                     ) -> Tuple[List[str], List[str], int, int]:
     """Loads ``path`` into ``model`` in place; returns (missing, unexpected,
     step, epoch) as the JAX ``load_checkpoint`` reports them: ``missing``
     the tensors that kept their initialisation, in the order of the key
     map, ``unexpected`` the entries of the file that no tensor took (the
-    dead ``q_dense`` parameters and the non-weight entries left out)."""
+    dead ``q_dense`` parameters and the non-weight entries left out).
+    With ``optimizer``, the file's optimizer state (the port's or the JAX
+    package's) replaces its moments and ``step_count``; a file without one
+    leaves the optimizer as it is."""
     weights_path, tempdir = resolve_pretrained(path)
     try:
         payload = torch.load(weights_path, map_location="cpu",
@@ -111,6 +258,15 @@ def load_checkpoint(path, model: torch.nn.Module
     if unexpected:
         logger.info("checkpoint %s: %d unused entries (e.g. %s)", path,
                     len(unexpected), unexpected[0])
+    if optimizer is not None:
+        opt_state = None
+        if "optimizer_state_dict" in payload:
+            opt_state = payload["optimizer_state_dict"]
+        elif "jax_optimizer_state" in payload:
+            opt_state = _from_jax_opt_state(payload["jax_optimizer_state"],
+                                            model.cfg)
+        if opt_state is not None:
+            load_optimizer_state_by_name(model, optimizer, opt_state)
     return (missing, unexpected, int(payload.get("jax_step", 0)),
             int(payload.get("epoch", -1)))
 

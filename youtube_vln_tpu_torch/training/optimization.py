@@ -147,7 +147,9 @@ class AdamWRef(torch.optim.Optimizer):
     prefix) takes a zero gradient, as every leaf of the JAX package's tree
     update does: its moments decay and the weight decay still applies.
     Updates run in place with the ``torch._foreach_*`` kernels, one set per
-    parameter group."""
+    parameter group.  ``state_dict`` carries ``step_count``, the schedule's
+    position, beside the moments ``exp_avg`` / ``exp_avg_sq``, so that a
+    resumed run continues the schedule."""
 
     B1, B2, EPS = 0.9, 0.999, 1e-6
 
@@ -165,6 +167,17 @@ class AdamWRef(torch.optim.Optimizer):
         step_size = (lr * np.sqrt(f32(1.0) - f32(self.B2) ** t)
                      / (f32(1.0) - f32(self.B1) ** t))
         return float(lr), float(step_size)
+
+    def state_dict(self):
+        out = super().state_dict()
+        out["step_count"] = self.step_count
+        return out
+
+    def load_state_dict(self, state_dict):
+        state_dict = dict(state_dict)
+        step_count = int(state_dict.pop("step_count"))
+        super().load_state_dict(state_dict)
+        self.step_count = step_count
 
     @torch.no_grad()
     def step(self, closure=None):

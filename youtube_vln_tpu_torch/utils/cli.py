@@ -5,8 +5,8 @@ defaults, so the published recipes (README.md:103-183) run unchanged;
 ``--device`` defaults to ``cuda`` and takes ``cpu`` on request.  Parsed
 args fold into one :class:`~youtube_vln_tpu_torch.config.RunConfig`;
 ``--no_pallas`` maps to ``use_attention_kernels=False``.  The flags of
-the JAX package with no counterpart here (mesh, remat, profiler,
-compilation cache, Orbax) are refused unless left at their defaults.
+the JAX package with no counterpart here yet (mesh, compilation cache,
+Orbax) are refused unless left at their defaults.
 
 Note: the reference's ``boolean_string`` helper returns False for every
 accepted input (cli.py:4-9), making ``--in_memory`` and
@@ -25,8 +25,6 @@ from ..config import RunConfig
 TPU_ONLY = {
     "mesh_shape": ([], "A9 (DDP) and A10 (tensor parallelism)"),
     "mesh_axes": (["data", "model"], "A9 (DDP) and A10 (tensor parallelism)"),
-    "remat": (False, "A7 (engine and entries)"),
-    "profile_dir": ("", "A7 (engine and entries)"),
     "compilation_cache_dir": ("", "A13 (tooling)"),
     "orbax_checkpoints": (False, "A9 (DDP)"),
 }

@@ -33,4 +33,5 @@ def build_model_config(args: RunConfig) -> LilyConfig:
     cfg.masked_language = args.masked_language
     cfg.compute_dtype = args.compute_dtype
     cfg.use_attention_kernels = args.use_attention_kernels
+    cfg.remat = args.remat
     return cfg

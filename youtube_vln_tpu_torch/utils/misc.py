@@ -1,15 +1,17 @@
-"""Run management: output dirs, seeding, logging, config dumps (a copy of
-``youtube_vln_tpu/utils/misc.py`` without the code snapshot).
+"""Run management: output dirs, seeding, logging, config dumps and the
+code snapshot (a copy of ``youtube_vln_tpu/utils/misc.py``).
 
 Mirrors reference ``utils/misc.py`` behaviors: incrementing run directories
 ``{output_dir}/{save_name}{sep}{N}_{timestamp}_{note}`` (:60-73), seeding
-(:37-45), stdout+file logging (:22-33), and the config.txt dump
-(pretrain.py:57-64) with the git revision.
+(:37-45), stdout+file logging (:22-33), the code snapshot (exp_saver,
+:96-113), and the config.txt dump (pretrain.py:57-64) with the git
+revision.
 """
 from __future__ import annotations
 
 import dataclasses
 import logging
+import os
 import random
 import re
 import subprocess
@@ -40,6 +42,14 @@ def get_logger(name: str, file: str = "") -> logging.Logger:
                    for h in logger.handlers):
             logger.addHandler(logging.FileHandler(file))
     return logger
+
+
+class NoneLogger:
+    def info(self, *a, **k):
+        pass
+
+    def warning(self, *a, **k):
+        pass
 
 
 def set_seed(seed: int, process_index: int = 0) -> None:
@@ -76,6 +86,39 @@ def git_revision() -> Optional[str]:
             ["git", "rev-parse", "HEAD"], stderr=subprocess.DEVNULL,
             text=True).strip()
     except Exception:
+        return None
+
+
+def save_code_snapshot(save_folder: Path,
+                       ignore=("data", "result", "results", ".git",
+                               "__pycache__", ".vscode", "youtube_data")
+                       ) -> Optional[Path]:
+    """Zip the source tree next to the run plus a rerun script (reference
+    exp_saver, misc.py:96-113)."""
+    import zipfile
+    from shlex import quote
+
+    out_dir = Path(save_folder) / "sh_n_codes"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    zip_path = out_dir / "code.zip"
+    root = Path.cwd()
+    try:
+        with zipfile.ZipFile(zip_path, "w", zipfile.ZIP_DEFLATED) as zf:
+            # os.walk with in-place dirnames pruning: rglob would traverse
+            # (and stat) the entire ignored trees first, on a data host
+            # the feature stores under data/
+            for dirpath, dirnames, filenames in os.walk(root):
+                dirnames[:] = [d for d in dirnames if d not in ignore]
+                for name in filenames:
+                    if name.endswith(".py"):
+                        path = Path(dirpath) / name
+                        zf.write(path, path.relative_to(root))
+        with open(out_dir / "rerun.sh", "w") as f:
+            f.write(f"cd {quote(str(root))}\n")
+            f.write(sys.executable + " "
+                    + " ".join(quote(a) for a in sys.argv) + "\n")
+        return zip_path
+    except OSError:
         return None
 
 
