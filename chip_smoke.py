@@ -3,6 +3,9 @@
 
     python3 chip_smoke.py [--seed N]
 
+(``--ddp-child SPEC`` runs one rank of phase 14; the script starts those
+itself.)
+
 Phases, each fatal on failure:
   1. the card's name and power limit (nvidia-smi);
   2. the build of every CUDA kernel from ``youtube_vln_tpu_torch/ops/csrc``
@@ -87,9 +90,28 @@ Phases, each fatal on failure:
      ``best_ranking.bin`` and ``best_traj.bin`` written; prints a
      ``train_entry`` JSON line (ms per step, trajectories/s, peak memory,
      save seconds and bytes, load seconds, eval ms per split);
- 14. a ``kernels`` JSON line: per kernel its launches on the eval, the
-     fine-tuning, the pretraining, the test entry (run A), the train entry
-     and the pretrain entry paths, error, time, bound, plain time
+ 14. data parallelism, on phase 13's fixtures: (a) B1-B6 at their train
+     shapes with dropout 0.1, each half of the batch launched with the
+     offset its rank of two would pass (first global stream or row): the
+     rows of the full launch bit for bit (B6's dw/db, sums over the rows,
+     within the tolerance), offset 0 bit for bit the launch without one,
+     each against its plain twin; (b) the 30RS train entry in a child
+     process of a world-1 NCCL group (``RANK=0 WORLD_SIZE=1``), so the model
+     is DDP-wrapped on the card, with ``--orbax_checkpoints`` (a ``.dcp``
+     save) and a ``--resume`` from it, 6 launches of each of B1-B4 per
+     micro-step, ms per step against phase 13's unwrapped run; (c) two
+     child ranks over gloo on the one card: 30RS ``--remat`` in f32 with
+     dropout 0 against the same run in this process (per-step losses within
+     1e-4 relative), in bf16 (losses equal across the ranks), and the MRT
+     step with the epilogue kernels (24 launches each of B5/B6 per
+     micro-step per rank) saved collectively as ``.dcp`` and loaded here in
+     one process, equal to rank 0's weights; a child that fails or hangs
+     (420 s) fails the run; prints a ``ddp`` JSON line (gloo's times are
+     not a speed number);
+ 15. a ``kernels`` JSON line: per kernel its launches on the eval, the
+     fine-tuning, the pretraining, the test entry (run A), the train entry,
+     the pretrain entry and the data-parallel (phase 14 b and c, every rank)
+     paths, error, time, bound, plain time
      and a library call's time at the train shapes (B1/B2 also at the eval
      shapes, B5/B6 at the pretraining shape); B1-B4 also carry the bf16
      D = 128 registers and blocks per SM, B6 those of its bf16 instance.
@@ -99,7 +121,9 @@ or without the package beside it, the script exits non-zero.
 import argparse
 import contextlib
 import json
+import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -1300,7 +1324,7 @@ def epilogue_kernel_checks(seed):
         err_b = max(check(f"B6 epilogue_bwd d{name} {tag}", g, r, tol, 0.0)
                     for name, g, r in zip(("h", "res", "w", "b"), got, want))
         if rate > 0.0:
-            keep = E._keep(h, rate, drop_seed)
+            keep = E._keep(h, rate, drop_seed, 0)
             if not bool((got[0][~keep] == 0).all()):
                 fail(f"B6 {tag}: dh is not 0 where B5 dropped")
         again = E._epilogue_bwd(*ops, do, rate, drop_seed)
@@ -1359,37 +1383,40 @@ def plain_launchers():
     def bias_or_zeros(bias, b, s, device):
         return torch.zeros(b, s, device=device) if bias is None else bias
 
-    def attention_fwd(q, k, v, bias, rate, seed, want_lse):
+    def attention_fwd(q, k, v, bias, rate, seed, want_lse, stream0=0):
         bias = bias_or_zeros(bias, q.shape[0], k.shape[2], q.device)
         lse = A.attention_lse_reference(q, k, bias) if want_lse else None
-        return A.attention_reference(q, k, v, bias, rate, seed), lse, (q, k, v, bias)
+        return (A.attention_reference(q, k, v, bias, rate, seed, 0, stream0), lse,
+                (q, k, v, bias))
 
-    def attention_bwd(q, k, v, bias, o, do, lse, rate, seed):
-        return A.attention_bwd_reference(q, k, v, bias, do, rate, seed)
+    def attention_bwd(q, k, v, bias, o, do, lse, rate, seed, stream0=0):
+        return A.attention_bwd_reference(q, k, v, bias, do, rate, seed, 0, stream0)
 
     def bi_attention_fwd(q1, k1, v1, q2, k2, v2, v_bias, t_bias, rate1, rate2,
-                         seed, want_lse):
+                         seed, want_lse, stream0=0):
         vb = bias_or_zeros(v_bias, q1.shape[0], k1.shape[2], q1.device)
         tb = bias_or_zeros(t_bias, q1.shape[0], k2.shape[2], q1.device)
         ctx1, ctx2 = A.bi_attention_reference(q1, k1, v1, q2, k2, v2, vb, tb,
-                                              rate1, rate2, seed)
+                                              rate1, rate2, seed, stream0)
         lse1, lse2 = ((A.attention_lse_reference(q2, k1, vb),
                        A.attention_lse_reference(q1, k2, tb)) if want_lse
                       else (None, None))
         return ctx1, ctx2, lse1, lse2, (q1, k1, v1, q2, k2, v2, vb, tb)
 
     def bi_attention_bwd(q1, k1, v1, q2, k2, v2, vb, tb, ctx1, ctx2, lse1, lse2,
-                         do1, do2, rate1, rate2, seed):
+                         do1, do2, rate1, rate2, seed, stream0=0):
         return A.bi_attention_bwd_reference(q1, k1, v1, q2, k2, v2, vb, tb, do1,
-                                            do2, rate1, rate2, seed)
+                                            do2, rate1, rate2, seed, stream0)
 
-    def epilogue_fwd(h, res, weight, bias, rate, seed):
+    def epilogue_fwd(h, res, weight, bias, rate, seed, row0=0):
         d = h.shape[-1]
         h, res = h.reshape(-1, d), res.reshape(-1, d)
-        return E.epilogue_reference(h, res, weight, bias, rate, seed), (h, res, weight)
+        return (E.epilogue_reference(h, res, weight, bias, rate, seed, row0),
+                (h, res, weight))
 
-    def epilogue_bwd(h, res, weight, do, rate, seed):
-        return E.epilogue_bwd_reference(h, res, weight, do.reshape(h.shape), rate, seed)
+    def epilogue_bwd(h, res, weight, do, rate, seed, row0=0):
+        return E.epilogue_bwd_reference(h, res, weight, do.reshape(h.shape), rate, seed,
+                                        row0)
 
     patched = [(A, "_attention_fwd", attention_fwd), (A, "_attention_bwd", attention_bwd),
                (A, "_bi_attention_fwd", bi_attention_fwd),
@@ -1420,27 +1447,36 @@ def check_pretrain_launches(cfg, launches, micro, what):
                  f"{per} x {micro}")
 
 
-def pretrain_fixture(root, seed):
-    """The YTb fixture at flagship geometry (scripts/bench_e2e.py:62-67) and
-    the run configuration of the pretraining recipe."""
-    from youtube_vln_tpu_torch.config import RunConfig
-    from youtube_vln_tpu_torch.data import fixtures
-    flagship = dict(max_instruction_length=S_T, max_path_length=L,
+# the YTb fixture's geometry: the flagship's (scripts/bench_e2e.py:62-67)
+PRE_GEOMETRY = dict(max_instruction_length=S_T, max_path_length=L,
                     max_num_boxes=BOXES, min_path_length=4, min_captioned=2,
                     max_captioned=7, sparse_vision_targets=True,
                     dedup_candidates=True)
-    t0 = time.perf_counter()
-    paths = fixtures.build_ytb_fixture(root, n_videos=PRE_VIDEOS,
-                                       frames_per_video=PRE_FRAMES,
-                                       k_boxes=BOXES, seed=seed,
-                                       args_overrides=flagship)
-    build_s = time.perf_counter() - t0
+
+
+def pretrain_args(paths, seed):
+    """The run configuration of the pretraining recipe on the YTb fixture."""
+    from youtube_vln_tpu_torch.config import RunConfig
     args = RunConfig(pretrain=True, pre_dataset="ytb", ranking=True,
                      traj_judge=True, masked_vision=True, masked_language=True,
                      batch_size=PRE_B, learning_rate=2e-5, num_workers=0,
                      num_negatives=2, skeleton_path=paths["skeleton_path"],
-                     seed=seed, **flagship)
+                     seed=seed, **PRE_GEOMETRY)
     args.validate()
+    return args
+
+
+def pretrain_fixture(root, seed):
+    """The YTb fixture at flagship geometry and the run configuration of
+    the pretraining recipe."""
+    from youtube_vln_tpu_torch.data import fixtures
+    t0 = time.perf_counter()
+    paths = fixtures.build_ytb_fixture(root, n_videos=PRE_VIDEOS,
+                                       frames_per_video=PRE_FRAMES,
+                                       k_boxes=BOXES, seed=seed,
+                                       args_overrides=PRE_GEOMETRY)
+    build_s = time.perf_counter() - t0
+    args = pretrain_args(paths, seed)
     store_bytes = Path(paths["store_path"]).stat().st_size
     print(f"pretraining fixture: {PRE_VIDEOS} videos x {PRE_FRAMES} frames x "
           f"{BOXES} boxes, store {store_bytes / 1e9:.3f} GB, built in {build_s:.1f} s")
@@ -1651,16 +1687,18 @@ def instrumented_entries(rec):
     step, the optimizer's ``step_count`` before it and the lr it takes,
     the losses and the peak device memory so far), every training epoch
     (``epochs``: seconds, the Loader's start included), every checkpoint
-    saved (``saves``: seconds and bytes) and loaded (``loads``: seconds)
-    and every split evaluated (``evals``: name and ms, the readback
-    included)."""
+    saved (``saves``: seconds and bytes, a ``.dcp`` directory's files
+    summed) and loaded (``loads``: seconds), every split evaluated
+    (``evals``: name and ms, the readback included) and every model
+    wrapped in DistributedDataParallel (``ddp``)."""
     import torch
     from youtube_vln_tpu_torch.parallel import train_step as ts
     from youtube_vln_tpu_torch.training import checkpoint as ck
     from youtube_vln_tpu_torch.training.engine import Engine
     real = (ts.build_train_step, ck.save_checkpoint, ck.load_checkpoint,
-            Engine.evaluate, Engine.__init__, Engine.train_epoch)
-    build, save, load, evaluate, init, train_epoch = real
+            Engine.evaluate, Engine.__init__, Engine.train_epoch, ck.save_dcp,
+            ts.data_parallel)
+    build, save, load, evaluate, init, train_epoch, save_dcp, data_parallel = real
 
     def build_recorded(model, cfg, args, optimizer, device="cuda"):
         step = build(model, cfg, args, optimizer, device=device)
@@ -1686,6 +1724,18 @@ def instrumented_entries(rec):
         rec["saves"].append(dict(s=time.perf_counter() - t0,
                                  bytes=Path(path).stat().st_size, name=Path(path).name))
         return path
+
+    def save_dcp_recorded(*a, **k):
+        t0 = time.perf_counter()
+        path = save_dcp(*a, **k)
+        files = {f.name: f.stat().st_size for f in Path(path).iterdir()}
+        rec["saves"].append(dict(s=time.perf_counter() - t0, name=Path(path).name,
+                                 bytes=sum(files.values()), files=files))
+        return path
+
+    def data_parallel_recorded(model, device):
+        rec["ddp"].append(str(device))
+        return data_parallel(model, device)
 
     def load_recorded(*a, **k):
         t0 = time.perf_counter()
@@ -1714,11 +1764,13 @@ def instrumented_entries(rec):
         build_recorded, save_recorded, load_recorded)
     Engine.evaluate, Engine.__init__, Engine.train_epoch = (
         evaluate_recorded, init_recorded, train_epoch_recorded)
+    ck.save_dcp, ts.data_parallel = save_dcp_recorded, data_parallel_recorded
     try:
         yield
     finally:
         (ts.build_train_step, ck.save_checkpoint, ck.load_checkpoint,
-         Engine.evaluate, Engine.__init__, Engine.train_epoch) = real
+         Engine.evaluate, Engine.__init__, Engine.train_epoch, ck.save_dcp,
+         ts.data_parallel) = real
 
 
 def run_entry(main, argv):
@@ -1726,7 +1778,7 @@ def run_entry(main, argv):
     memory reset just before it: (returned value, launch counts, record)."""
     import torch
     rec = dict(engines=[], steps=[], epochs=[], saves=[], loads=[], evals=[],
-               last_end=None)
+               ddp=[], last_end=None)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
@@ -1770,10 +1822,9 @@ def train_entry_path(seed):
     runs them: ``entries.train.main`` (recipe 30RS) on an R2R fixture of 48
     instructions per split, its ``--resume`` from the epoch-0 checkpoint, a
     run with ``--remat --profile_dir``, and ``entries.pretrain.main`` (the
-    MRT recipe, 3 Loader workers) on the YTb fixture of phase 10.  Returns
-    the launch counts of the 30RS run and of the pretraining run."""
-    import shutil
-
+    MRT recipe, 3 Loader workers) on the YTb fixture of phase 10; then
+    phase 14 (``ddp_path``) on the same fixtures.  Returns the launch counts
+    of the 30RS run, of the pretraining run and of phase 14."""
     import numpy as np
     import torch
     from youtube_vln_tpu_torch import lily_base_config
@@ -1914,6 +1965,9 @@ def train_entry_path(seed):
             fail(f"pretrain entry: best accuracies {best}")
         rec_d["engines"].clear()
         del engine
+        shutil.rmtree(root / "result" / "mrt")
+        torch.cuda.empty_cache()
+        launches_ddp = ddp_path(seed, root, recipe, pre_paths, median_step_ms(rec_a))
 
     saves = rec_a["saves"] + rec_b["saves"] + rec_c["saves"] + rec_d["saves"]
     print(json.dumps({
@@ -1945,13 +1999,445 @@ def train_entry_path(seed):
                    (("train", rec_a), ("resume", rec_b), ("remat", rec_c), ("pretrain", rec_d))},
         "first_step_loss": {"train": loss_a, "remat": loss_c}}))
     torch.cuda.empty_cache()
-    return launches_a, launches_d
+    return launches_a, launches_d, launches_ddp
+
+
+# --------------------------------------------------------------------------- #
+# phase 14: data parallelism
+# --------------------------------------------------------------------------- #
+DDP_WORLD = 2
+CHILD_TIMEOUT_S = 420              # a child that outlives it fails the run
+DDP_LOSS_RTOL = 1e-4               # f32 two ranks against one process
+
+
+def same_bits(what, got, want) -> None:
+    """Fatal unless every tensor of ``got`` equals its ``want`` bit for bit."""
+    import torch
+    for i, (g, w) in enumerate(zip(got, want)):
+        if g.shape != w.shape or not torch.equal(g, w):
+            fail(f"{what}: output {i} differs from the full launch's rows")
+
+
+def offset_checks(seed):
+    """Phase 14a: B1-B6 at their train shapes with dropout 0.1, each half
+    of the batch launched as a rank of two would launch it (its first
+    global stream or row as the offset): bitwise that half of the full
+    launch (B6: dh and dres; dw and db, sums over the rows, within the
+    tolerance), offset 0 bitwise the launch without one, and each offset
+    launch against its plain twin with the same offset.  Returns how many
+    launches were compared."""
+    import torch
+    from youtube_vln_tpu_torch.ops import attention as A
+    from youtube_vln_tpu_torch.ops import epilogue as E
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 14)
+    bf16, tol = torch.bfloat16, TOL["bfloat16"]
+    s_v, bh = L * BOXES, TRAIN_B * TRAIN_NC
+    half = bh // DDP_WORLD
+    drop_seed = 0xDD9 + seed
+    n_checked = 0
+
+    # B1 / B3: vision self-attention, 96 x 8 heads x 808, D 128
+    q, k, v, do = (heads_view(gen, bh, HEADS, s_v, 128, bf16) for _ in range(4))
+    bias = key_bias(gen, bh, s_v)
+    out, lse, _ = A._attention_fwd(q, k, v, bias, RATE, drop_seed, True)
+    same_bits("B1 at offset 0", A._attention_fwd(q, k, v, bias, RATE, drop_seed, True, 0)[:2],
+              (out, lse))
+    grads = A._attention_bwd(q, k, v, bias, out, do, lse, RATE, drop_seed)
+    same_bits("B3 at offset 0", A._attention_bwd(q, k, v, bias, out, do, lse, RATE,
+                                                 drop_seed, 0), grads)
+    for r in range(DDP_WORLD):
+        rows, s0 = slice(r * half, (r + 1) * half), r * half * HEADS
+        qr, kr, vr, dor, br = q[rows], k[rows], v[rows], do[rows], bias[rows]
+        o, lr, _ = A._attention_fwd(qr, kr, vr, br, RATE, drop_seed, True, s0)
+        same_bits(f"B1 rank {r} of {DDP_WORLD}", (o, lr), (out[rows], lse[rows]))
+        check(f"B1 rank {r} (stream0 {s0}) vs plain", o,
+              A.attention_reference(qr, kr, vr, br, RATE, drop_seed, 0, s0), tol)
+        g = A._attention_bwd(qr, kr, vr, br, o, dor, lr, RATE, drop_seed, s0)
+        same_bits(f"B3 rank {r} of {DDP_WORLD}", g, [x[rows] for x in grads])
+        for name, gi, ti in zip("qkv", g, A.attention_bwd_reference(
+                qr, kr, vr, br, dor, RATE, drop_seed, 0, s0)):
+            check(f"B3 rank {r} d{name} vs plain", gi, ti, tol, floor=0)
+        n_checked += 2
+    del q, k, v, do, bias, out, lse, grads
+    torch.cuda.empty_cache()
+
+    # B2 / B4: co-attention 60 <-> 808
+    vis = [heads_view(gen, bh, HEADS, s_v, 128, bf16) for _ in range(3)]
+    txt = [heads_view(gen, bh, HEADS, S_T, 128, bf16) for _ in range(3)]
+    vb, tb = key_bias(gen, bh, s_v), key_bias(gen, bh, S_T)
+    do1, do2 = heads_view(gen, bh, HEADS, S_T, 128, bf16), heads_view(gen, bh, HEADS, s_v,
+                                                                        128, bf16)
+    *fwd, _ = A._bi_attention_fwd(*vis, *txt, vb, tb, RATE, RATE, drop_seed, True)
+    same_bits("B2 at offset 0", A._bi_attention_fwd(*vis, *txt, vb, tb, RATE, RATE,
+                                                    drop_seed, True, 0)[:4], fwd)
+    grads = A._bi_attention_bwd(*vis, *txt, vb, tb, *fwd, do1, do2, RATE, RATE, drop_seed)
+    same_bits("B4 at offset 0", A._bi_attention_bwd(*vis, *txt, vb, tb, *fwd, do1, do2,
+                                                    RATE, RATE, drop_seed, 0), grads)
+    for r in range(DDP_WORLD):
+        rows, s0 = slice(r * half, (r + 1) * half), r * half * HEADS
+        ops = [x[rows] for x in vis + txt]
+        vbr, tbr, d1, d2 = vb[rows], tb[rows], do1[rows], do2[rows]
+        *f, _ = A._bi_attention_fwd(*ops, vbr, tbr, RATE, RATE, drop_seed, True, s0)
+        same_bits(f"B2 rank {r} of {DDP_WORLD}", f, [x[rows] for x in fwd])
+        for c, (got, want) in enumerate(zip(f[:2], A.bi_attention_reference(
+                *ops, vbr, tbr, RATE, RATE, drop_seed, s0)), 1):
+            check(f"B2 rank {r} ctx{c} (stream0 {s0}) vs plain", got, want, tol)
+        g = A._bi_attention_bwd(*ops, vbr, tbr, *f, d1, d2, RATE, RATE, drop_seed, s0)
+        same_bits(f"B4 rank {r} of {DDP_WORLD}", g, [x[rows] for x in grads])
+        for name, gi, ti in zip(("q1", "k1", "v1", "q2", "k2", "v2"), g,
+                                A.bi_attention_bwd_reference(*ops, vbr, tbr, d1, d2, RATE,
+                                                             RATE, drop_seed, s0)):
+            check(f"B4 rank {r} d{name} vs plain", gi, ti, tol, floor=0)
+        n_checked += 2
+    del vis, txt, vb, tb, do1, do2, fwd, grads
+    torch.cuda.empty_cache()
+
+    # B5 / B6: the MRT vision stream, 45,248 x 1024 rows
+    n, d = PRE_B * PRE_NC * L * BOXES, 1024
+    hn = n // DDP_WORLD
+    h, res, do = (torch.randn(n, d, generator=gen, device="cuda").to(bf16) for _ in range(3))
+    w = 1.0 + 0.1 * torch.randn(d, generator=gen, device="cuda")
+    b = 0.1 * torch.randn(d, generator=gen, device="cuda")
+    out, ops = E._epilogue_fwd(h, res, w, b, RATE, drop_seed)
+    same_bits("B5 at offset 0", E._epilogue_fwd(h, res, w, b, RATE, drop_seed, 0)[:1], (out,))
+    grads = E._epilogue_bwd(*ops, do, RATE, drop_seed)
+    same_bits("B6 at offset 0", E._epilogue_bwd(*ops, do, RATE, drop_seed, 0), grads)
+    dw_db = [torch.zeros_like(grads[2]), torch.zeros_like(grads[3])]
+    for r in range(DDP_WORLD):
+        rows, r0 = slice(r * hn, (r + 1) * hn), r * hn
+        hr, resr, dor = h[rows], res[rows], do[rows]
+        o, opsr = E._epilogue_fwd(hr, resr, w, b, RATE, drop_seed, r0)
+        same_bits(f"B5 rank {r} of {DDP_WORLD}", (o,), (out[rows],))
+        check(f"B5 rank {r} (row0 {r0}) vs plain", o,
+              E.epilogue_reference(hr, resr, w, b, RATE, drop_seed, r0), tol)
+        g = E._epilogue_bwd(*opsr, dor, RATE, drop_seed, r0)
+        same_bits(f"B6 dh, dres rank {r} of {DDP_WORLD}", g[:2], [x[rows] for x in grads[:2]])
+        for name, gi, ti in zip(("h", "res", "w", "b"), g, E.epilogue_bwd_reference(
+                hr, resr, w, dor, RATE, drop_seed, r0)):
+            check(f"B6 rank {r} d{name} vs plain", gi, ti, tol, floor=0)
+        dw_db[0] += g[2]
+        dw_db[1] += g[3]
+        n_checked += 2
+    for name, got, want in zip(("dw", "db"), dw_db, grads[2:]):
+        check(f"B6 {name} summed over the ranks vs the full launch", got, want, tol, floor=0)
+    del h, res, do, out, ops, grads
+    torch.cuda.empty_cache()
+    print(f"offsets: {n_checked} launches of B1-B6 on a rank's half equal to the rows "
+          f"of the full launch, bit for bit")
+    return n_checked
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_children(tag, world, spec, root):
+    """Runs ``chip_smoke.py --ddp-child`` as ranks 0 .. world-1 (launcher
+    variables set, every rank on device 0) and returns each rank's result.
+    A child that fails, or outlives ``CHILD_TIMEOUT_S``, fails the run; none
+    is left running."""
+    spec_path = Path(root) / f"{tag}.json"
+    spec_path.write_text(json.dumps(dict(spec, out=str(Path(root) / tag))))
+    port = free_port()
+    sys.stdout.flush()
+    procs = []
+    for r in range(world):
+        env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(world), LOCAL_RANK="0",
+                   MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+        procs.append(subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                                       "--ddp-child", str(spec_path)], env=env))
+    t0 = time.perf_counter()
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, CHILD_TIMEOUT_S - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        fail(f"{tag}: a rank outlived its {CHILD_TIMEOUT_S} s timeout")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, p in enumerate(procs):
+        if p.returncode != 0:
+            fail(f"{tag}: rank {r} exited with {p.returncode}")
+    print(f"{tag}: {world} rank(s) in {time.perf_counter() - t0:.1f} s")
+    return [json.loads((Path(root) / f"{tag}.rank{r}.json").read_text())
+            for r in range(world)]
+
+
+def entry_record(rec, launches):
+    """What a child reports of one entry run."""
+    engine = rec["engines"][0]
+    return dict(losses=[s["losses"] for s in rec["steps"]],
+                step_ms=[s["ms"] for s in rec["steps"]],
+                ms_per_step=median_step_ms(rec) if len(rec["steps"]) > 1 else None,
+                peak_gib=max(s["peak"] for s in rec["steps"]) / 2 ** 30,
+                step_counts=[s["step_count"] for s in rec["steps"]],
+                first_lr=rec["steps"][0]["lr"], schedule3=engine.schedule(3),
+                final_step_count=engine.optimizer.step_count,
+                start_epoch=engine.start_epoch, saves=rec["saves"], loads=rec["loads"],
+                ddp=rec["ddp"], launches=launches)
+
+
+def child_entry(run, spec):
+    """One run of the train entry on this rank: fatal unless each micro-step
+    launched its share of B1-B4 (``per_micro``) and the model was wrapped in
+    DDP once."""
+    import torch
+    from youtube_vln_tpu_torch import lily_base_config
+    from youtube_vln_tpu_torch.entries import train as train_entry
+    _, launches, rec = run_entry(train_entry.main, run["argv"])
+    check_entry_run(f"{run['name']}, rank {os.environ['RANK']}", rec, launches,
+                    lily_base_config(), 0, tuple(run["per_micro"]))
+    if len(rec["ddp"]) != 1:
+        fail(f"{run['name']}: the model was wrapped in DDP {len(rec['ddp'])} times")
+    out = entry_record(rec, launches)
+    rec["engines"].clear()
+    torch.cuda.empty_cache()
+    return out
+
+
+def child_mrt(run, spec):
+    """The MRT step with ``use_epilogue_kernels`` on, DDP over the group: two
+    steps of the YTb fixture's Loader shard of this rank (4 of the global 8
+    instructions), the launches checked per micro-step, then a collective
+    ``.dcp`` save, and rank 0's weights as a ``.bin`` to compare it with."""
+    import numpy as np
+    import torch
+    from youtube_vln_tpu_torch import lily_base_config
+    from youtube_vln_tpu_torch.data.datasets import YTbDataset
+    from youtube_vln_tpu_torch.data.features_reader import YTbFeaturesReader
+    from youtube_vln_tpu_torch.data.loader import Loader
+    from youtube_vln_tpu_torch.data.tokenizer import load_tokenizer
+    from youtube_vln_tpu_torch.models import Lily
+    from youtube_vln_tpu_torch.parallel import distributed
+    from youtube_vln_tpu_torch.parallel.train_step import build_train_step, create_train_state
+    from youtube_vln_tpu_torch.training import checkpoint as ck
+
+    world, rank = distributed.world_size(), distributed.rank()
+    paths, seed = run["paths"], spec["seed"]
+    args = pretrain_args(paths, seed)
+    reader = YTbFeaturesReader(paths["store_path"])
+    ds = YTbDataset(args=args, caption_path=paths["caption_path"],
+                    tokenizer=load_tokenizer(paths["vocab_path"]), features_reader=reader,
+                    masked_vision=True, masked_language=True, training=True, seed=seed)
+    loader = Loader(ds, PRE_B // world, shuffle=True, seed=seed, num_workers=0,
+                    num_shards=world, shard=rank, drop_last=True)
+    batches = list(loader)[:2]          # the epoch read to its end
+    reader.close()
+    cfg = lily_base_config(ranking=True, traj_judge=True, masked_vision=True,
+                           masked_language=True, compute_dtype="bfloat16",
+                           use_epilogue_kernels=True)
+    model = Lily(cfg, device="cuda").init_weights(seed)
+    optimizer, _ = create_train_state(model, args, steps_per_epoch=1000)
+    step = build_train_step(model, cfg, args, optimizer, device="cuda")
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    metrics = [step(b, 0xA9 + i) for i, b in enumerate(batches)]
+    losses = [{k: float(v) for k, v in m.items() if k.startswith("loss/")} for m in metrics]
+    ms = (time.perf_counter() - t0) * 1e3 / len(batches)
+    launches = counts()
+    check_pretrain_launches(cfg, launches, len(batches), f"MRT over DDP, rank {rank}")
+    if not all(np.isfinite(list(l.values())).all() for l in losses):
+        fail(f"MRT over DDP, rank {rank}: non-finite losses {losses}")
+    out_dir = Path(run["out_dir"])
+    t0 = time.perf_counter()
+    path = ck.save_dcp(out_dir, "mrt", model, optimizer, step=optimizer.step_count, epoch=0)
+    save_s = time.perf_counter() - t0
+    saved = dict(path=path, s=save_s,
+                 bytes=sum(f.stat().st_size for f in Path(path).iterdir()))
+    if rank == 0:
+        saved["bin"] = ck.save_checkpoint(out_dir, "mrt_rank0", model, cfg)
+    del model, optimizer, step
+    torch.cuda.empty_cache()
+    return dict(losses=losses, ms_per_step=ms, launches=launches, dcp=saved)
+
+
+CHILD_RUNS = {"entry": child_entry, "mrt": child_mrt}
+
+
+def ddp_child(spec_path) -> int:
+    """``--ddp-child``: one rank of a phase-14 group.  With ``backend`` gloo
+    the group is joined here, every rank on device 0 (NCCL refuses two
+    ranks on one device); with nccl the entry joins it itself."""
+    import torch
+    spec = json.loads(Path(spec_path).read_text())
+    sys.path.insert(0, str(REPO))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from youtube_vln_tpu_torch.parallel import distributed
+    if spec["backend"] != "nccl":
+        distributed.initialize("cuda", backend=spec["backend"])
+    out = {}
+    for run in spec["runs"]:
+        out[run["name"]] = CHILD_RUNS[run["kind"]](run, spec)
+    out["backend"] = torch.distributed.get_backend()
+    out["world"] = distributed.world_size()
+    Path(f"{spec['out']}.rank{distributed.rank()}.json").write_text(json.dumps(out))
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def sum_launches(*runs):
+    total = dict.fromkeys(runs[0], 0)
+    for launches in runs:
+        for k, v in launches.items():
+            total[k] += v
+    return total
+
+
+def dropout_free_config(root) -> Path:
+    """The flagship config file with every dropout rate at 0 (the fused
+    pool's, ``fusion_dropout_prob``, is not in the file: its default is 0.1)."""
+    cfg = json.loads((REPO / "configs" / "bert_base_6_layer_6_connect.json").read_text())
+    cfg.update({k: 0.0 for k in ("hidden_dropout_prob", "attention_probs_dropout_prob",
+                                 "v_hidden_dropout_prob", "v_attention_probs_dropout_prob",
+                                 "fusion_dropout_prob")})
+    path = Path(root) / "bert_base_6_layer_6_connect_dropout0.json"
+    path.write_text(json.dumps(cfg))
+    return path
+
+
+def ddp_path(seed, root, recipe, pre_paths, unwrapped_ms):
+    """Phase 14: data parallelism.  (a) ``offset_checks``; (b) the 30RS
+    train entry in a child process of a world-1 NCCL group, so the model is
+    DDP-wrapped on the card, with ``--orbax_checkpoints`` and a ``--resume``
+    from its ``.dcp``; (c) two gloo ranks on the one card: 30RS with
+    ``--remat`` in f32 with dropout 0 against one process on the same global
+    batches (this process, 1e-4 relative), then in bf16, then the MRT step
+    with the epilogue kernels and a collective ``.dcp`` save loaded here in
+    one process.  Gloo moves each step's gradients through host memory:
+    (c)'s times are not a speed number.  Returns the launch counts of (b)
+    and (c), every rank summed."""
+    import torch
+    from youtube_vln_tpu_torch import lily_base_config
+    from youtube_vln_tpu_torch.entries import train as train_entry
+    from youtube_vln_tpu_torch.models import Lily
+    from youtube_vln_tpu_torch.training import checkpoint as ck
+
+    n_offsets = offset_checks(seed)
+    root = Path(root)
+    result = root / "ddp_result"
+
+    # (b) world 1 over NCCL
+    b = run_children("ddp_nccl", 1, {"backend": "nccl", "seed": seed, "runs": [
+        dict(name="30RS, NCCL world 1", kind="entry", per_micro=[1, 1], argv=recipe + [
+            "--num_epochs", "1", "--save_epochs", "1", "--skip_val", "--orbax_checkpoints",
+            "--save_name", "ddp1", "--output_dir", str(result)]),
+        dict(name="30RS, NCCL world 1, --resume", kind="entry", per_micro=[1, 1],
+             argv=recipe + ["--num_epochs", "2", "--save_epochs", "1", "--skip_val",
+                            "--orbax_checkpoints", "--save_name", "ddp1_resume",
+                            "--output_dir", str(result), "--resume", "--from_pretrained",
+                            str(result / "ddp1" / "data" / "0.dcp")])]}, root)[0]
+    run_b, resumed = b["30RS, NCCL world 1"], b["30RS, NCCL world 1, --resume"]
+    if (b["backend"], b["world"]) != ("nccl", 1) or run_b["ddp"] != ["cuda:0"]:
+        fail(f"NCCL world 1: backend {b['backend']}, world {b['world']}, DDP {run_b['ddp']}")
+    if [s["name"] for s in run_b["saves"]] != ["0.dcp"] or len(resumed["loads"]) != 1:
+        fail(f"NCCL world 1: saves {run_b['saves']}, resume loads {resumed['loads']}")
+    if (resumed["start_epoch"], resumed["step_counts"][0], resumed["final_step_count"]) != (
+            1, 3, 6) or resumed["first_lr"] != resumed["schedule3"]:
+        fail(f"NCCL world 1, --resume from 0.dcp: start epoch {resumed['start_epoch']}, "
+             f"step counts {resumed['step_counts']} -> {resumed['final_step_count']}, "
+             f"lr {resumed['first_lr']} against schedule(3) {resumed['schedule3']}")
+    shutil.rmtree(result, ignore_errors=True)
+
+    # (c) two gloo ranks on the one card; the one-process f32 run here first
+    f32 = recipe + ["--compute_dtype", "float32", "--config_file",
+                    str(dropout_free_config(root)), "--remat", "--num_epochs", "1",
+                    "--skip_val", "--output_dir", str(result)]
+    _, _, rec_one = run_entry(train_entry.main, f32 + ["--save_name", "f32_one"])
+    one = [s["losses"] for s in rec_one["steps"]]
+    rec_one["engines"].clear()
+    shutil.rmtree(result, ignore_errors=True)
+    torch.cuda.empty_cache()
+    c = run_children("ddp_gloo", DDP_WORLD, {"backend": "gloo", "seed": seed, "runs": [
+        dict(name="30RS f32", kind="entry", per_micro=[2, 1],
+             argv=f32 + ["--orbax_checkpoints", "--save_name", "f32_ddp"]),
+        dict(name="30RS bf16", kind="entry", per_micro=[2, 1],
+             argv=recipe + ["--remat", "--num_epochs", "1", "--skip_val",
+                            "--orbax_checkpoints", "--save_name", "bf16_ddp",
+                            "--output_dir", str(result)]),
+        dict(name="MRT", kind="mrt", paths=pre_paths, out_dir=str(root / "mrt_ddp"))]},
+        root)
+    for name in ("30RS f32", "30RS bf16"):
+        per_rank = [r[name]["losses"] for r in c]
+        if any(l != per_rank[0] for l in per_rank):
+            fail(f"{name}: the ranks' global losses differ: {per_rank}")
+    ddp_f32 = c[0]["30RS f32"]["losses"]
+    rel = max(abs(g[k] - w[k]) / max(abs(w[k]), 1e-12)
+              for g, w in zip(ddp_f32, one) for k in w)
+    print(f"f32 30RS, 2 gloo ranks against one process: losses {ddp_f32} against {one}, "
+          f"max relative difference {rel:.3e}")
+    if len(ddp_f32) != len(one) or len(one) != 3 or not rel <= DDP_LOSS_RTOL:
+        fail(f"f32 30RS over 2 ranks: {len(ddp_f32)} steps against {len(one)}, "
+             f"relative difference {rel} above {DDP_LOSS_RTOL}")
+    if c[0]["MRT"]["losses"] != c[1]["MRT"]["losses"]:
+        fail("MRT over DDP: the ranks' global losses differ")
+
+    # the MRT step's collective .dcp save, loaded in this process alone
+    cfg = lily_base_config(ranking=True, traj_judge=True, masked_vision=True,
+                           masked_language=True)
+    t0 = time.perf_counter()
+    from_dcp = Lily(cfg, device="cuda")
+    ck.load_checkpoint(c[0]["MRT"]["dcp"]["path"], from_dcp)
+    dcp_load_s = time.perf_counter() - t0
+    from_bin = Lily(cfg, device="cuda")
+    ck.load_checkpoint(c[0]["MRT"]["dcp"]["bin"], from_bin)
+    differ = [k for (k, a), b2 in zip(from_dcp.state_dict().items(),
+                                      from_bin.state_dict().values()) if not torch.equal(a, b2)]
+    if differ:
+        fail(f"MRT .dcp loaded in one process differs from rank 0's weights: {differ[:3]}")
+    del from_dcp, from_bin
+    shutil.rmtree(root / "mrt_ddp", ignore_errors=True)
+    shutil.rmtree(result, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    launches = sum_launches(*[run["launches"] for run in b.values() if isinstance(run, dict)],
+                            *[r[name]["launches"] for r in c
+                              for name in ("30RS f32", "30RS bf16", "MRT")])
+    print(json.dumps({
+        "ddp": "phase 14: 30RS entry over a world-1 NCCL group (DDP) and 2 gloo ranks "
+               "on one card; gloo times are not a speed number",
+        "offset_launches_bitwise_equal": n_offsets,
+        "nccl_world1": {"ms_per_step": run_b["ms_per_step"], "unwrapped_ms_per_step":
+                        unwrapped_ms, "ratio": run_b["ms_per_step"] / unwrapped_ms,
+                        "step_ms": run_b["step_ms"], "peak_gib": run_b["peak_gib"],
+                        "dcp_save_s": run_b["saves"][0]["s"],
+                        "dcp_save_bytes": run_b["saves"][0]["bytes"],
+                        "dcp_resume_load_s": resumed["loads"][0],
+                        "resume_ms_per_step": resumed["ms_per_step"],
+                        "launches": run_b["launches"]},
+        "gloo_2_ranks_not_speed": {
+            "f32_losses": ddp_f32, "one_process_f32_losses": one,
+            "f32_max_rel_diff": rel,
+            "one_process_f32_ms_per_step": median_step_ms(rec_one),
+            "f32_ms_per_step": [r["30RS f32"]["ms_per_step"] for r in c],
+            "bf16_losses": c[0]["30RS bf16"]["losses"],
+            "bf16_ms_per_step": [r["30RS bf16"]["ms_per_step"] for r in c],
+            "bf16_peak_gib": [r["30RS bf16"]["peak_gib"] for r in c],
+            "dcp_save_s": [r["30RS bf16"]["saves"][0]["s"] for r in c],
+            "dcp_save_bytes": c[0]["30RS bf16"]["saves"][0]["bytes"],
+            "dcp_files_bytes": c[1]["30RS bf16"]["saves"][0]["files"],
+            "mrt_losses": c[0]["MRT"]["losses"],
+            "mrt_ms_per_step": [r["MRT"]["ms_per_step"] for r in c],
+            "mrt_dcp_save_s": [r["MRT"]["dcp"]["s"] for r in c],
+            "mrt_dcp_load_one_process_s": dcp_load_s,
+            "launches_per_rank": {name: [r[name]["launches"] for r in c]
+                                  for name in ("30RS f32", "30RS bf16", "MRT")}},
+        "launches_ddp": launches}))
+    return launches
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the random weights and inputs")
+    ap.add_argument("--ddp-child", default="", help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     import torch
@@ -1959,6 +2445,8 @@ def main() -> int:
         fail("no CUDA device")
     if not (REPO / "youtube_vln_tpu_torch" / "ops" / "csrc").is_dir():
         fail(f"the youtube_vln_tpu_torch package is not beside {__file__}")
+    if args.ddp_child:
+        return ddp_child(args.ddp_child)
     sys.path.insert(0, str(REPO))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1980,7 +2468,7 @@ def main() -> int:
     launches_train = train_path(args.seed)
     rows.update(epilogue_kernel_checks(args.seed))
     launches_pretrain = pretrain_path(args.seed)
-    launches_train_entry, launches_pretrain_entry = train_entry_path(args.seed)
+    launches_train_entry, launches_pretrain_entry, launches_ddp = train_entry_path(args.seed)
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     for name, row in rows.items():
         row["launches_eval"] = launches_eval[name]
@@ -1989,9 +2477,11 @@ def main() -> int:
         row["launches_entry"] = launches_entry[name]
         row["launches_train_entry"] = launches_train_entry[name]
         row["launches_pretrain_entry"] = launches_pretrain_entry[name]
+        row["launches_ddp"] = launches_ddp[name]
         row["launches"] = (launches_eval[name] + launches_train[name]
                            + launches_pretrain[name] + launches_entry[name]
-                           + launches_train_entry[name] + launches_pretrain_entry[name])
+                           + launches_train_entry[name] + launches_pretrain_entry[name]
+                           + launches_ddp[name])
         if name in eval_rows:
             row["eval_shape"] = {k: eval_rows[name][k] for k in keys}
         row.update(occupancy.get(name, {}))

@@ -292,12 +292,13 @@ def test_site_seeds_differ_and_repeat():
 
 def test_bwd_problem_struct_mirrors_the_c_layout():
     """struct BwdProblem in csrc/attention_bwd.cu: 11 pointers, 24 int64
-    strides, 2 ints, then struct vln_philox::Dropout (24 bytes)."""
+    strides, 2 ints, then struct vln_philox::Dropout (28 bytes), padded to
+    the pointers' alignment."""
     assert port._BwdProblem.q_sb.offset == 11 * 8
     assert port._BwdProblem.dv_ss.offset == 11 * 8 + 23 * 8
     assert port._BwdProblem.s_q.offset == 280
     assert port._BwdProblem.dropout.offset == 288
-    assert ctypes.sizeof(port._BwdProblem) == 288 + 24
+    assert ctypes.sizeof(port._BwdProblem) == 288 + 28 + 4
 
 
 def test_library_name_covers_shared_headers(tmp_path, monkeypatch):

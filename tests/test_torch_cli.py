@@ -2,8 +2,9 @@
 utils/cli.py``, ``entry.py``, ``misc.py``) against the JAX package's: the
 same options with the same defaults, types, choices and actions (this pins
 the flag set without the reference repository), apart from ``--device``;
-the TPU-only flags not ported yet refused at any non-default value, and
-``--remat`` / ``--profile_dir`` parsed; ``args_to_run_config`` and
+the TPU-only flag not ported yet refused at any non-default value, a
+``model`` mesh axis above 1 refused, and ``--remat`` / ``--profile_dir`` /
+``--mesh_axes`` / ``--orbax_checkpoints`` parsed; ``args_to_run_config`` and
 ``build_model_config`` equal field for field; ``increment_path``,
 ``dump_config`` and ``save_code_snapshot`` write the same folders and
 files."""
@@ -15,6 +16,7 @@ import pytest
 from youtube_vln_tpu.utils import cli as jcli
 from youtube_vln_tpu.utils import entry as jentry
 from youtube_vln_tpu.utils import misc as jmisc
+from youtube_vln_tpu_torch.parallel import mesh as pmesh
 from youtube_vln_tpu_torch.utils import cli as pcli
 from youtube_vln_tpu_torch.utils import entry as pentry
 from youtube_vln_tpu_torch.utils import misc as pmisc
@@ -56,16 +58,21 @@ FLAGS = {"mesh_shape": ["--mesh_shape", "2", "4"],
          "profile_dir": ["--profile_dir", "traces"],
          "compilation_cache_dir": ["--compilation_cache_dir", "cache"],
          "orbax_checkpoints": ["--orbax_checkpoints"]}
-PORTED = {"remat": True, "profile_dir": "traces"}
+PORTED = {"remat": True, "profile_dir": "traces", "mesh_axes": ("data",),
+          "orbax_checkpoints": True}
+# FLAGS["mesh_shape"] gives the model axis 4: tensor parallelism, refused
+REFUSED_VALUES = {"mesh_shape"}
 
 
 @pytest.mark.parametrize("flag", sorted(FLAGS))
 def test_tpu_only_flags_refused_unless_default(flag):
     """The JAX package's TPU-only flags: those not ported yet are refused at
-    any value but their default, naming the ROADMAP item that ports each;
-    the ported ones (--remat, --profile_dir) parse into RunConfig."""
+    any value but their default, and a mesh with a model axis above 1 is
+    refused, each naming the ROADMAP item that ports it; the ported ones
+    (--remat, --profile_dir, --mesh_axes, --orbax_checkpoints) parse into
+    RunConfig as they do in the JAX package."""
     pcli.parse_run_config([])     # every default is accepted
-    assert set(pcli.TPU_ONLY) == set(FLAGS) - set(PORTED)
+    assert set(pcli.TPU_ONLY) == set(FLAGS) - set(PORTED) - REFUSED_VALUES
     if flag in PORTED:
         _, args = pcli.parse_run_config(FLAGS[flag])
         assert getattr(args, flag) == PORTED[flag]
@@ -77,6 +84,47 @@ def test_tpu_only_flags_refused_unless_default(flag):
     # the default spelled out is still accepted
     if flag == "mesh_axes":
         pcli.parse_run_config(["--mesh_axes", "data", "model"])
+
+
+DATA_MESHES = [(["--mesh_shape", "4", "--mesh_axes", "data"], {"data": 4}),
+               (["--mesh_shape", "2", "1"], {"data": 2, "model": 1}),
+               (["--mesh_shape", "2"], {"data": 2}),
+               (["--orbax_checkpoints", "--mesh_shape", "8", "1"],
+                {"data": 8, "model": 1})]
+
+
+@pytest.mark.parametrize("argv,extents", DATA_MESHES, ids=range(len(DATA_MESHES)))
+def test_data_axis_mesh_flags_accepted(argv, extents):
+    """A mesh on the data axis parses as in the JAX package and resolves
+    against a process group of its data extent, and of no other size."""
+    _, args = pcli.parse_run_config(argv)
+    _, jargs = jcli.parse_run_config(argv)
+    assert (args.mesh_shape, args.mesh_axes, args.orbax_checkpoints) == (
+        jargs.mesh_shape, jargs.mesh_axes, jargs.orbax_checkpoints)
+    assert pmesh.mesh_extents(args.mesh_shape, args.mesh_axes,
+                              extents["data"]) == extents
+    with pytest.raises(ValueError, match="process group holds"):
+        pmesh.mesh_extents(args.mesh_shape, args.mesh_axes, extents["data"] + 1)
+
+
+@pytest.mark.parametrize("argv,match", [
+    (["--mesh_shape", "1", "2"], "model.*A10"),
+    (["--mesh_shape", "2", "2", "--mesh_axes", "model", "data"], "model.*A10"),
+    (["--mesh_shape", "2", "--mesh_axes", "model"], "no 'data' axis"),
+    (["--mesh_shape", "2", "1", "--mesh_axes", "data", "pipe"], "unknown axis"),
+    (["--mesh_shape", "2", "1", "--mesh_axes", "data"], "distinct"),
+], ids=range(5))
+def test_mesh_beyond_the_data_axis_refused(argv, match):
+    with pytest.raises(ValueError, match=match):
+        pcli.parse_run_config(argv)
+
+
+def test_default_mesh_is_the_world_on_the_data_axis():
+    """``make_mesh``'s default: every process on ``data``, ``model`` 1."""
+    _, args = pcli.parse_run_config([])
+    assert pmesh.mesh_extents(args.mesh_shape, args.mesh_axes, 3) == {
+        "data": 3, "model": 1}
+    assert pmesh.mesh_extents((), ("data",), 2) == {"data": 2}
 
 
 RECIPES = [
@@ -105,9 +153,8 @@ def test_run_config_and_model_config_equal_jax(argv, tmp_path):
     for name, value in pfields.items():
         assert value == jfields[name], name
     # the fields the port leaves out are the TPU-only ones not ported yet
-    assert set(jfields) - set(pfields) == {
-        "use_pallas_attention", "mesh_shape", "mesh_axes",
-        "compilation_cache_dir", "orbax_checkpoints"}
+    assert set(jfields) - set(pfields) == {"use_pallas_attention",
+                                           "compilation_cache_dir"}
 
     for config_file in (str(tmp_path / "absent.json"), "configs/bert_base_6_layer_6_connect.json"):
         jargs.config_file = pargs.config_file = config_file

@@ -24,8 +24,10 @@ ignored.  Differences from the JAX copy:
 ``RunConfig`` copies the fields of ``youtube_vln_tpu/config.py:RunConfig``
 that the train step, the datasets, the loader and the command line read,
 with the same defaults and the ``validate`` checks that concern them; the
-ones not ported yet (mesh, compilation cache, Orbax) are left out, and
-``utils/cli.py`` refuses their flags.
+one not ported yet (the compilation cache) is left out, and
+``utils/cli.py`` refuses its flag.  ``mesh_shape`` / ``mesh_axes`` name the
+data-parallel axis (``parallel/mesh.py``; a ``model`` axis is refused) and
+``orbax_checkpoints`` saves ``torch.distributed.checkpoint`` directories.
 """
 from __future__ import annotations
 
@@ -258,6 +260,9 @@ class RunConfig:
     output_dir: str = "result"
     save_name: str = ""
     note: str = ""
+    # data parallelism: () puts every process on the data axis
+    mesh_shape: Tuple[int, ...] = ()
+    mesh_axes: Tuple[str, ...] = ("data", "model")
     # model knobs folded into LilyConfig by utils/entry.py
     compute_dtype: str = "bfloat16"
     use_attention_kernels: bool = True  # counterpart of use_pallas_attention
@@ -278,6 +283,8 @@ class RunConfig:
     profile_dir: str = ""               # torch.profiler trace of steps
                                         # 2-8 of the first epoch
     host_prefetch: int = 2              # batches copied ahead of their use
+    orbax_checkpoints: bool = False     # torch.distributed.checkpoint
+                                        # directories written by every rank
 
     def __post_init__(self):
         # tri-state: None means "follow sparse_vision_targets", so the pair

@@ -7,14 +7,15 @@ reference ``pretrain.py``).
 
 Epoch loop: train -> periodic save + prune -> test_epoch on the YTb test
 split -> best-per-task checkpoints (reference pretrain.py:104-164), on the
-CUDA device (``--device cpu`` runs on the CPU instead).
+CUDA device (``--device cpu`` runs on the CPU instead).  Data-parallel as
+``entries/train.py`` describes:
+
+    torchrun --nproc_per_node N -m youtube_vln_tpu_torch.entries.pretrain ...
 """
-from ..device import resolve_device
+from ..parallel.distributed import broadcast_host
 from ..training.engine import Engine
 from ..utils.cli import args_to_run_config, get_parser
-from ..utils.entry import build_model_config
-from ..utils.misc import dump_config, save_code_snapshot, set_seed
-from .train import open_run, save_epoch
+from .train import save_epoch, start
 
 
 def main(argv=None):
@@ -25,13 +26,7 @@ def main(argv=None):
     ns = parser.parse_args(argv)
     args = args_to_run_config(ns)
     args.validate()
-    device = resolve_device(ns.device)
-    set_seed(args.seed)
-
-    save_folder, model_save_path, logger, writer = open_run(ns)
-    cfg = build_model_config(args)
-    dump_config(save_folder, ns, cfg)
-    save_code_snapshot(save_folder)
+    device, model_save_path, logger, writer, cfg = start(ns, args)
 
     engine = Engine(args, cfg, save_folder=model_save_path,
                     run_logger=logger, device=device)
@@ -52,7 +47,8 @@ def main(argv=None):
         if not args.skip_val and (args.ranking or args.traj_judge):
             stats = engine.evaluate("test", epoch)
             for task in best:
-                acc = stats.get(f"accuracy/{task}", 0.0)
+                # rank 0's accuracy decides the save on every rank
+                acc = broadcast_host(stats.get(f"accuracy/{task}", 0.0))
                 if acc >= best[task]:
                     best[task] = acc
                     engine.save(f"best_{task}", epoch)

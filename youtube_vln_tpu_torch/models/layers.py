@@ -60,17 +60,34 @@ class DropoutRng:
     """The randomness of one train-mode forward, derived on the host from a
     64-bit seed (no device value is read): the n-th kernel site in call
     order takes ``site_seed(seed, n)``, n = 1, 2, ...; the other sites draw
-    from one generator on ``device`` seeded with ``site_seed(seed, 0)``."""
+    from one generator on ``device`` seeded with ``site_seed(seed, 0)``.
 
-    def __init__(self, seed: int, device):
+    Under data parallelism every rank takes the same step seed and
+    ``rank`` is its place in the process group.  A kernel site then draws
+    its rows of the global batch's mask: the rank's call starts at global
+    stream or row ``offset(rows)`` = rank * rows (equal shards, as the
+    JAX package's batch-sharded row ids).  The generator of the other
+    sites is seeded from ``site_seed(site_seed(seed, 0), rank)`` on a
+    rank above 0, so ranks draw independent bits there."""
+
+    def __init__(self, seed: int, device, rank: int = 0):
         self.seed = seed & MASK64
+        self.rank = rank
         self.sites = 0
         self.generator = torch.Generator(device=device)
-        self.generator.manual_seed(site_seed(self.seed, 0))
+        generator_seed = site_seed(self.seed, 0)
+        if rank:
+            generator_seed = site_seed(generator_seed, rank)
+        self.generator.manual_seed(generator_seed)
 
     def kernel_seed(self) -> int:
         self.sites += 1
         return site_seed(self.seed, self.sites)
+
+    def offset(self, rows: int) -> int:
+        """The first global stream (attention) or row (epilogue) of a
+        kernel call that holds ``rows`` of them on each rank."""
+        return self.rank * rows
 
 
 def dropout(x, rate: float, rng):
@@ -98,9 +115,9 @@ def dropout_add_ln(h, res, ln: "LayerNorm", rate: float, rng, cfg):
             and cfg.use_epilogue_kernels
             and epilogue.use_epilogue_kernel_for(h.numel(), h.shape[-1], rate,
                                                  True)):
-        return epilogue.fused_dropout_add_ln(h, res, ln.weight, ln.bias,
-                                             dropout_rate=rate,
-                                             seed=rng.kernel_seed())
+        return epilogue.fused_dropout_add_ln(
+            h, res, ln.weight, ln.bias, dropout_rate=rate,
+            seed=rng.kernel_seed(), row0=rng.offset(h.numel() // h.shape[-1]))
     return ln(dropout(h, rate, rng) + res)
 
 
@@ -178,10 +195,12 @@ class SelfAttentionHeads(nn.Module):
         v = split_heads(self.value(x), self.num_heads)
         rate = 0.0 if rng is None else self.dropout_rate
         if use_kernel_for(q.shape[2], k.shape[2], q.shape[3]):
-            seed = 0 if rng is None else rng.kernel_seed()
+            seed, stream0 = ((0, 0) if rng is None else
+                             (rng.kernel_seed(), rng.offset(q.shape[0] * q.shape[1])))
             attend = (fused_attention if self.cfg.use_attention_kernels
                       else attention_reference)
-            ctx = attend(q, k, v, key_bias, dropout_rate=rate, seed=seed)
+            ctx = attend(q, k, v, key_bias, dropout_rate=rate, seed=seed,
+                         stream0=stream0)
         else:
             ctx = attention_core(q, k, v, key_bias, rate, rng)
         return merge_heads(ctx)

@@ -129,11 +129,13 @@ class BiAttention(nn.Module):
                          cfg.attention_probs_dropout_prob))
         if use_kernel_for(q2.shape[2], k1.shape[2], q1.shape[3]):
             # both directions in ONE kernel launch (or its plain version)
-            seed = 0 if rng is None else rng.kernel_seed()
+            seed, stream0 = ((0, 0) if rng is None else
+                             (rng.kernel_seed(), rng.offset(q1.shape[0] * heads)))
             attend = (fused_bi_attention if cfg.use_attention_kernels
                       else bi_attention_reference)
             ctx1, ctx2 = attend(q1, k1, v1, q2, k2, v2, v_bias, t_bias,
-                                rate1=rate1, rate2=rate2, seed=seed)
+                                rate1=rate1, rate2=rate2, seed=seed,
+                                stream0=stream0)
         else:
             ctx1 = attention_core(q2, k1, v1, v_bias, rate1, rng)  # text -> vision
             ctx2 = attention_core(q1, k2, v2, t_bias, rate2, rng)  # vision -> text
@@ -389,7 +391,8 @@ class Lily(nn.Module):
     ``language_target_idx`` / ``vision_target_idx`` ([N, M]) restrict the
     masked-prediction heads to those rows.  In train mode (``.train()``)
     dropout is on and ``seed``, the forward's 64-bit dropout seed, is
-    required; eval mode ignores it.  The weights are uninitialised until
+    required, and ``rank`` is the process's place in a data-parallel group
+    (``DropoutRng``); eval mode ignores both.  The weights are uninitialised until
     ``init_weights`` or ``load_state_dict``."""
 
     def __init__(self, cfg: LilyConfig, device=None):
@@ -425,14 +428,14 @@ class Lily(nn.Module):
     def forward(self, instr_tokens, image_features, image_locations,
                 token_type_ids=None, attention_mask=None,
                 image_attention_mask=None, language_target_idx=None,
-                vision_target_idx=None, seed: Optional[int] = None
-                ) -> Dict[str, torch.Tensor]:
+                vision_target_idx=None, seed: Optional[int] = None,
+                rank: int = 0) -> Dict[str, torch.Tensor]:
         rng = None
         if self.training:
             if seed is None:
                 raise ValueError("train mode needs a dropout seed: pass "
                                  "seed=, or call .eval()")
-            rng = DropoutRng(seed, instr_tokens.device)
+            rng = DropoutRng(seed, instr_tokens.device, rank)
         cfg = self.cfg
         seq_t, seq_v, pooled_t, pooled_v = self.bert(
             instr_tokens, image_features, image_locations, token_type_ids,

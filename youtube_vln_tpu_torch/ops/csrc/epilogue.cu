@@ -12,8 +12,9 @@
 //   out  = w yh + b (f32), cast to h's type                          (B5)
 //   dyh  = do w;  dy = rstd (dyh - mean(dyh) - yh mean(dyh yh))
 //   dres = dy;  dh = keep ? dy * keep_scale : 0;  dw = sum do yh;  db = sum do
-// keep is the Philox mask of philox.cuh (keep4: counter (row, col / 4, 0, 2)),
-// a pure function of (row, column) under the call's seed, so B6 replays
+// keep is the Philox mask of philox.cuh (keep4: counter (offset + row, col / 4,
+// 0, 2), offset the launch's first global row under data parallelism), a
+// pure function of (row, column) under the call's seed, so B6 replays
 // B5's mask without storing it.  B6 recomputes y, mean and rstd from h and
 // res, as the TPU kernel does: it saves nothing beyond h and res.
 //

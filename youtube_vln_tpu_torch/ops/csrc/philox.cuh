@@ -10,7 +10,11 @@
 // under the key (seed_lo, seed_hi), and (i, j) reads word
 // 2 * ((i >> 3) & 1) + (j & 1): x (i0, j0), y (i0, j0 + 1), z (i0 + 8, j0),
 // w (i0 + 8, j0 + 1).  The entry is kept when its word is at least the
-// threshold rate * 2^32.  The group is exactly what one thread holds of an
+// threshold rate * 2^32.  ``stream`` is the global row b * H + h of the
+// problem: the launch's own b * H + h plus Dropout::offset, the first
+// stream of this process's shard of a data-parallel batch (0 in one
+// process), so a shard draws the rows of the whole batch's mask that it
+// holds.  The group is exactly what one thread holds of an
 // m16n8 mma.sync accumulator (rows {r, r + 8} x keys {2c, 2c + 1}), so the
 // bf16 forward and the dQ pass draw one call per fragment; the dK/dV pass
 // computes the transposed scores and permutes its rows through ldmatrix
@@ -19,8 +23,9 @@
 // forward and of both backward passes recomputes the same mask.
 //
 // Epilogue (epilogue.cu): element (row, col) of an [N, D] input is kept
-// when word (col % 4) of Philox4x32-10 with counter (row, col / 4, 0,
-// EPILOGUE_DIRECTION) and the same key is at least the threshold; one
+// when word (col % 4) of Philox4x32-10 with counter (offset + row, col / 4,
+// 0, EPILOGUE_DIRECTION) and the same key is at least the threshold, the
+// offset being the shard's first global row as above; one
 // Philox call serves four neighbouring columns.  Direction 2 keeps these
 // counters apart from the attention ones (directions 0 and 1).
 //
@@ -60,6 +65,8 @@ struct Dropout {
                        // EPILOGUE_DIRECTION: B5/B6
   float keep_scale;    // 1 / (1 - rate)
   int enabled;
+  uint32_t offset;     // first global stream (B1-B4) or row (B5/B6) of the
+                       // launch: rank * (its streams or rows) under DDP
 };
 
 // bit k set when word k of w is at least the threshold
@@ -72,7 +79,7 @@ __device__ __forceinline__ uint32_t kept4(uint4 w, uint32_t threshold) {
 // (i0, j0 + 1), bit 2 (i0 + 8, j0), bit 3 (i0 + 8, j0 + 1).
 __device__ __forceinline__ uint32_t keep_group(const Dropout& d, uint32_t stream,
                                                uint32_t i, uint32_t j) {
-  return kept4(philox4(((i >> 4) << 3) | (i & 7u), j >> 1, stream,
+  return kept4(philox4(((i >> 4) << 3) | (i & 7u), j >> 1, d.offset + stream,
                        d.direction, d.seed_lo, d.seed_hi), d.threshold);
 }
 
@@ -86,8 +93,8 @@ __device__ __forceinline__ bool keep(const Dropout& d, uint32_t stream,
 // bit c for column 4*group + c.
 __device__ __forceinline__ uint32_t keep4(const Dropout& d, uint32_t row,
                                           uint32_t group) {
-  return kept4(philox4(row, group, 0u, EPILOGUE_DIRECTION, d.seed_lo,
-                       d.seed_hi), d.threshold);
+  return kept4(philox4(d.offset + row, group, 0u, EPILOGUE_DIRECTION,
+                       d.seed_lo, d.seed_hi), d.threshold);
 }
 
 }  // namespace vln_philox

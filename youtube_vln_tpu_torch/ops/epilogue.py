@@ -17,7 +17,9 @@ that launched.
 Dropout keeps an element when its Philox draw is at least rate * 2^32 (the
 exact rate of the attention kernels, ``ops/philox.py:epilogue_keep``) and
 scales kept values by 1 / (1 - rate); the mask is a pure function of (row,
-column) under the call's 64-bit seed, so B6 replays B5's mask.
+column) under the call's 64-bit seed, so B6 replays B5's mask; ``row0`` is
+the call's first global row (rank * N when each process of a
+data-parallel run holds N rows of the global batch, 0 in one process).
 
 ``use_epilogue_kernel_for`` is the site rule of the JAX package's
 ``select_epilogue_fn`` (``epilogue.py:265-274``): train mode, a rate above
@@ -76,23 +78,23 @@ def _check_pair(h, res):
                          f"{tuple(res.shape)} {res.dtype} must match")
 
 
-def _keep(h, rate: float, seed: int):
+def _keep(h, rate: float, seed: int, row0: int):
     d = h.shape[-1]
-    return epilogue_keep(seed, rate, h.numel() // d, d,
-                         h.device).view(h.shape)
+    return epilogue_keep(seed, rate, h.numel() // d, d, h.device,
+                         row0).view(h.shape)
 
 
-def _dropped(h, rate: float, seed: int):
+def _dropped(h, rate: float, seed: int, row0: int):
     """dropout(h) rounded to h's dtype: kept values times 1 / (1 - rate)."""
     if rate == 0.0:
         return h
-    return torch.where(_keep(h, rate, seed), h * _keep_scale(rate),
+    return torch.where(_keep(h, rate, seed, row0), h * _keep_scale(rate),
                        0.0).to(h.dtype)
 
 
-def _normalised(h, res, rate, seed):
+def _normalised(h, res, rate, seed, row0):
     """(yhat, rstd) of LayerNorm(dropout(h) + res) in f32."""
-    y = (_dropped(h, rate, seed) + res).float()
+    y = (_dropped(h, rate, seed, row0) + res).float()
     u = y.mean(-1, keepdim=True)
     s = (y - u).square().mean(-1, keepdim=True)
     rstd = torch.rsqrt(s + LN_EPS)
@@ -100,17 +102,17 @@ def _normalised(h, res, rate, seed):
 
 
 def epilogue_reference(h, res, weight, bias, dropout_rate: float = 0.0,
-                       seed: int = 0):
+                       seed: int = 0, row0: int = 0):
     """LayerNorm(dropout(h) + res) with ``weight``/``bias`` (f32, [D]),
     in h's dtype; at rate 0 it is ``models/layers.py:LayerNorm`` of h + res,
     op for op."""
     _check_pair(h, res)
-    yhat, _ = _normalised(h, res, dropout_rate, seed)
+    yhat, _ = _normalised(h, res, dropout_rate, seed, row0)
     return (weight * yhat + bias).to(h.dtype)
 
 
 def epilogue_bwd_reference(h, res, weight, do, dropout_rate: float = 0.0,
-                           seed: int = 0):
+                           seed: int = 0, row0: int = 0):
     """(dh, dres, dw, db) of ``epilogue_reference`` for the output gradient
     ``do``, as the TPU kernel computes them (``_epi_bwd_kernel``): recompute
     yhat and rstd, dy = rstd (dyhat - mean(dyhat) - yhat mean(dyhat yhat))
@@ -118,7 +120,7 @@ def epilogue_bwd_reference(h, res, weight, do, dropout_rate: float = 0.0,
     do yhat and db = sum do over the rows, in f32."""
     _check_pair(h, res)
     d = h.shape[-1]
-    yhat, rstd = _normalised(h, res, dropout_rate, seed)
+    yhat, rstd = _normalised(h, res, dropout_rate, seed, row0)
     do32 = do.float()
     dyhat = do32 * weight
     m1 = dyhat.mean(-1, keepdim=True)
@@ -126,7 +128,7 @@ def epilogue_bwd_reference(h, res, weight, do, dropout_rate: float = 0.0,
     dy = rstd * (dyhat - m1 - yhat * m2)
     dh = dy
     if dropout_rate > 0.0:
-        dh = torch.where(_keep(h, dropout_rate, seed),
+        dh = torch.where(_keep(h, dropout_rate, seed, row0),
                          dy * _keep_scale(dropout_rate), 0.0)
     return (dh.to(h.dtype), dy.to(res.dtype),
             (do32 * yhat).reshape(-1, d).sum(0).to(weight.dtype),
@@ -196,7 +198,7 @@ def _param(p: torch.Tensor) -> torch.Tensor:
     return _rows(p, p.shape[0])[0]
 
 
-def _epilogue_fwd(h, res, weight, bias, rate, seed):
+def _epilogue_fwd(h, res, weight, bias, rate, seed, row0=0):
     """B5 on CUDA operands: (out [N, D], the operands as read)."""
     _check_kernel_operands(h, res, weight, bias)
     d = h.shape[-1]
@@ -204,7 +206,7 @@ def _epilogue_fwd(h, res, weight, bias, rate, seed):
     out = torch.empty_like(h)
     problem = _Epilogue(h=h.data_ptr(), res=res.data_ptr(), w=weight.data_ptr(),
                         b=bias.data_ptr(), out=out.data_ptr(), n_rows=h.shape[0],
-                        d=d, dropout=_dropout(rate, seed, EPILOGUE_DIRECTION))
+                        d=d, dropout=_dropout(rate, seed, EPILOGUE_DIRECTION, row0))
     _launch("epilogue_fwd", problem, h)
     LAUNCHES["epilogue_fwd"] += 1
     return out, (h, res, weight)
@@ -235,7 +237,7 @@ def _bwd_blocks(n_rows: int, rows_per_block: int, blocks_per_sm: int,
     return max(1, min(math.ceil(n_rows / rows_per_block), blocks_per_sm * sms))
 
 
-def _epilogue_bwd(h, res, weight, do, rate, seed):
+def _epilogue_bwd(h, res, weight, do, rate, seed, row0=0):
     """B6 on CUDA operands (as ``_epilogue_fwd`` read them): (dh, dres, dw,
     db); dh/dres [N, D] in h's dtype, dw/db [D] f32."""
     n, d = h.shape
@@ -251,7 +253,7 @@ def _epilogue_bwd(h, res, weight, do, rate, seed):
                         dw_part=parts[0].data_ptr(), db_part=parts[1].data_ptr(),
                         dw=dw_db[0].data_ptr(), db=dw_db[1].data_ptr(),
                         n_rows=n, d=d, n_blocks=n_blocks,
-                        dropout=_dropout(rate, seed, EPILOGUE_DIRECTION))
+                        dropout=_dropout(rate, seed, EPILOGUE_DIRECTION, row0))
     _launch("epilogue_bwd", problem, h)
     LAUNCHES["epilogue_bwd"] += 1
     return dh, dres, dw_db[0], dw_db[1]
@@ -261,13 +263,15 @@ class FusedEpilogueFn(torch.autograd.Function):
     """B5 forward, B6 backward (plain versions for CPU tensors)."""
 
     @staticmethod
-    def forward(ctx, h, res, weight, bias, dropout_rate, seed):
-        ctx.rate, ctx.seed, ctx.shape = dropout_rate, seed, h.shape
+    def forward(ctx, h, res, weight, bias, dropout_rate, seed, row0):
+        ctx.rate, ctx.seed, ctx.row0, ctx.shape = dropout_rate, seed, row0, h.shape
         ctx.on_cpu = _on_cpu(h, res, weight, bias)
         if ctx.on_cpu:
             ctx.save_for_backward(h, res, weight)
-            return epilogue_reference(h, res, weight, bias, dropout_rate, seed)
-        out, operands = _epilogue_fwd(h, res, weight, bias, dropout_rate, seed)
+            return epilogue_reference(h, res, weight, bias, dropout_rate, seed,
+                                      row0)
+        out, operands = _epilogue_fwd(h, res, weight, bias, dropout_rate, seed,
+                                      row0)
         ctx.save_for_backward(*operands)
         return out.view(h.shape)
 
@@ -276,24 +280,29 @@ class FusedEpilogueFn(torch.autograd.Function):
         h, res, weight = ctx.saved_tensors
         if ctx.on_cpu:
             dh, dres, dw, db = epilogue_bwd_reference(h, res, weight, do,
-                                                      ctx.rate, ctx.seed)
+                                                      ctx.rate, ctx.seed,
+                                                      ctx.row0)
         else:
             dh, dres, dw, db = _epilogue_bwd(h, res, weight, do, ctx.rate,
-                                             ctx.seed)
-        return (dh.view(ctx.shape), dres.view(ctx.shape), dw, db, None, None)
+                                             ctx.seed, ctx.row0)
+        return (dh.view(ctx.shape), dres.view(ctx.shape), dw, db, None, None,
+                None)
 
 
 def fused_dropout_add_ln(h, res, weight, bias, *, dropout_rate: float = 0.0,
-                         seed: int = 0):
+                         seed: int = 0, row0: int = 0):
     """B5: LayerNorm(dropout(h) + res) over the last dim; its gradient is
     B6.
 
     h, res: [..., D] of one dtype (bf16 or f32 on the card, D a multiple of
     128 up to 1024); weight, bias: [D] f32; ``seed`` is the call's 64-bit
-    dropout seed.  Returns h's shape and dtype."""
+    dropout seed and ``row0`` its first global row (0 in one process).
+    Returns h's shape and dtype."""
     if _records_grad(h, res, weight, bias):
         return FusedEpilogueFn.apply(h, res, weight, bias, float(dropout_rate),
-                                     int(seed))
+                                     int(seed), int(row0))
     if _on_cpu(h, res, weight, bias):
-        return epilogue_reference(h, res, weight, bias, dropout_rate, seed)
-    return _epilogue_fwd(h, res, weight, bias, dropout_rate, seed)[0].view(h.shape)
+        return epilogue_reference(h, res, weight, bias, dropout_rate, seed,
+                                  row0)
+    return _epilogue_fwd(h, res, weight, bias, dropout_rate, seed,
+                         row0)[0].view(h.shape)

@@ -16,7 +16,11 @@ of entries, all four of its words used:
 
 with ``stream`` the global row id b*H + h, ``i`` the query row, ``j`` the
 key, and ``direction`` 0 for B1 and for B2's text->vision direction, 1 for
-B2's vision->text direction.  The group of (i, j) is rows {i0, i0 + 8} x
+B2's vision->text direction.  Under data parallelism a process holds a
+shard of the global batch and passes its first global stream ``stream0``
+(rank * B_local * H; 0 in one process), so each shard draws its rows of
+the mask the whole batch would draw, as the TPU kernels do with their
+batch-sharded row-id operand (``youtube_vln_tpu/ops/attention.py:56-59``).  The group of (i, j) is rows {i0, i0 + 8} x
 keys {j0, j0 + 1} (i0: i with bit 3 cleared, j0: j with bit 0 cleared):
 what one thread holds of an m16n8 ``mma.sync`` accumulator, so the kernels
 draw one call per fragment (``csrc/philox.cuh``).  A probability is kept
@@ -31,8 +35,9 @@ The epilogue kernels B5/B6 (``ops/epilogue.py``) drop elements of an
         philox4x32_10(counter=(row, col // 4, 0, EPILOGUE_DIRECTION),
                       key=(seed_lo, seed_hi))[col % 4] >= threshold(rate)
 
-with ``row`` the global row of the flattened input and direction 2, so
-these counters never meet the attention ones.  The rate is exact, as at
+with ``row`` the global row of the flattened input (a shard's first row
+``row0`` plus its own row) and direction 2, so these counters never meet
+the attention ones.  The rate is exact, as at
 the attention sites, not the uint8 rule of the XLA-path dropout.
 
 Plain torch has no unsigned 32-bit product, and a 32 x 32 -> 64-bit
@@ -104,11 +109,11 @@ def site_seed(base: int, site: int) -> int:
 
 def dropout_keep(seed: int, rate: float, batch: int, heads: int, s_q: int,
                  s_kv: int, direction: int = 0, device=None, q0: int = 0,
-                 k0: int = 0) -> torch.Tensor:
+                 k0: int = 0, stream0: int = 0) -> torch.Tensor:
     """The keep mask [batch, heads, s_q, s_kv] (bool) of query rows
-    [q0, q0 + s_q) and keys [k0, k0 + s_kv) of one attention call, bit for
-    bit the mask its kernel draws.  One Philox call per 2 x 2 group, as on
-    the card."""
+    [q0, q0 + s_q) and keys [k0, k0 + s_kv) of one attention call whose
+    first global stream is ``stream0``, bit for bit the mask its kernel
+    draws.  One Philox call per 2 x 2 group, as on the card."""
     key = seed_key(seed)
     thresh = keep_threshold(rate)
     i = torch.arange(q0, q0 + s_q, dtype=torch.int64, device=device)
@@ -127,7 +132,8 @@ def dropout_keep(seed: int, rate: float, batch: int, heads: int, s_q: int,
                       device=device)
     step = max(1, _CHUNK // max(1, 4 * rows.shape[0] * cols.shape[1]))
     for r0 in range(0, batch * heads, step):
-        stream = torch.arange(r0, min(r0 + step, batch * heads),
+        stream = torch.arange(stream0 + r0,
+                              stream0 + min(r0 + step, batch * heads),
                               dtype=torch.int64, device=device)[:, None, None]
         words = torch.stack(philox4x32(rows, cols, stream, direction, key),
                             dim=-1) >= thresh
@@ -136,9 +142,10 @@ def dropout_keep(seed: int, rate: float, batch: int, heads: int, s_q: int,
 
 
 def epilogue_keep(seed: int, rate: float, n_rows: int, d: int,
-                  device=None) -> torch.Tensor:
+                  device=None, row0: int = 0) -> torch.Tensor:
     """The keep mask [n_rows, d] (bool) of one epilogue call (d a multiple
-    of 4), bit for bit the mask kernels B5/B6 draw."""
+    of 4) whose first global row is ``row0``, bit for bit the mask kernels
+    B5/B6 draw."""
     if d % 4:
         raise ValueError(f"epilogue mask needs d % 4 == 0, got {d}")
     key = seed_key(seed)
@@ -147,8 +154,8 @@ def epilogue_keep(seed: int, rate: float, n_rows: int, d: int,
     out = torch.empty(n_rows, d // 4, 4, dtype=torch.bool, device=device)
     step = max(1, _CHUNK // d)
     for r0 in range(0, n_rows, step):
-        rows = torch.arange(r0, min(r0 + step, n_rows), dtype=torch.int64,
-                            device=device)[:, None]
+        rows = torch.arange(row0 + r0, row0 + min(r0 + step, n_rows),
+                            dtype=torch.int64, device=device)[:, None]
         words = philox4x32(rows, group, 0, EPILOGUE_DIRECTION, key)
         out[r0:r0 + step] = torch.stack(words, dim=-1) >= thresh
     return out.view(n_rows, d)

@@ -22,10 +22,20 @@ transport dtype (float16) here; the model upcasts them.
 (dropout on, kernels B1/B2 forward and B3/B4 backward at the kernel
 sites), the task losses, the backward, the ``AdamWRef`` update and zeroed
 gradients.  Its metrics stay device tensors: nothing is read back.
+
+Under a process group (``parallel/distributed.py``) the step wraps the
+model in ``DistributedDataParallel`` and keeps the JAX package's
+global-batch semantics: each rank's loss is its share of the global
+batch's loss (``training/losses.py``, the counts summed over the ranks),
+scaled by the world size because DDP averages the gradients; the metrics
+are summed over the ranks, so ``loss/*`` are the global batch's losses
+and ``correct/*`` its counts; dropout masks are those of the global
+batch's rows (``models/layers.py:DropoutRng``).
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Tuple
+import contextlib
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -34,6 +44,7 @@ from ..device import resolve_device, to_device
 from ..ops.philox import site_seed
 from ..training import losses as losses_lib
 from ..training.optimization import AdamWRef, make_schedule, param_groups
+from . import distributed
 
 # static cap on target-carrying text positions per row (JAX
 # train_step.py:141-144): 32 of 60 is > 8 sigma above the 15% ladder
@@ -123,10 +134,13 @@ def _task_config(args: RunConfig, training: bool) -> Dict[str, Any]:
 
 
 def loss_fn(model: torch.nn.Module, batch: Dict[str, torch.Tensor],
-            tasks: Dict[str, Any], seed=None
+            tasks: Dict[str, Any], seed=None, rank: int = 0,
+            total_counts: Optional[Callable] = None
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """(total loss, metrics) of one batch on the device; train or eval as
-    the model is set, ``seed`` the dropout seed of train mode."""
+    the model is set, ``seed`` the dropout seed of train mode, ``rank`` the
+    process's place in a data-parallel group and ``total_counts`` the sum
+    of the loss counts over it (``compute_task_losses``)."""
     batch = expand_beam_steps(_expand_dedup(batch))
     flat = flatten_candidates(batch)
     instr_targets = _merge01(batch["instr_targets"])
@@ -150,7 +164,8 @@ def loss_fn(model: torch.nn.Module, batch: Dict[str, torch.Tensor],
         flat["instr_tokens"], flat["image_features"], flat["image_locations"],
         token_type_ids=flat["segment_ids"], attention_mask=flat["instr_mask"],
         image_attention_mask=flat["image_mask"],
-        language_target_idx=lang_idx, vision_target_idx=vis_idx, seed=seed)
+        language_target_idx=lang_idx, vision_target_idx=vis_idx, seed=seed,
+        rank=rank)
     loss_batch = dict(opt_mask=batch["opt_mask"],
                       ranking_target=batch["ranking_target"],
                       instr_targets=instr_targets,
@@ -161,7 +176,8 @@ def loss_fn(model: torch.nn.Module, batch: Dict[str, torch.Tensor],
     if "image_targets_idx" in batch:
         loss_batch["image_targets_idx"] = _merge01(batch["image_targets_idx"])
         loss_batch["vision_pre_gathered"] = vis_idx is not None
-    return losses_lib.compute_task_losses(outputs, loss_batch, tasks)
+    return losses_lib.compute_task_losses(outputs, loss_batch, tasks,
+                                          total_counts)
 
 
 def create_train_state(model: torch.nn.Module, args: RunConfig,
@@ -189,6 +205,31 @@ def _check_model(model: torch.nn.Module, cfg, args: RunConfig,
                              f"{task} head")
 
 
+def data_parallel(model: torch.nn.Module, device: torch.device
+                  ) -> torch.nn.Module:
+    """``model`` in ``DistributedDataParallel`` over the process group.
+    ``find_unused_parameters``, as the reference wraps it
+    (``SURVEY.md:120``): a run that trains some heads leaves the others
+    and the frozen prefixes without a gradient, and DDP then leaves their
+    gradient unset on every rank, so ``AdamWRef`` gives them the zero
+    gradient of the JAX tree update."""
+    from torch.nn.parallel import DistributedDataParallel
+    ids = None
+    if device.type == "cuda":
+        ids = [device.index if device.index is not None
+               else torch.cuda.current_device()]
+    return DistributedDataParallel(model, device_ids=ids,
+                                   find_unused_parameters=True)
+
+
+def _sum_metrics(metrics: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The metrics summed over the ranks, in one collective."""
+    keys = list(metrics)
+    total = distributed.sum_across_ranks(
+        torch.stack([metrics[k].float() for k in keys]))
+    return dict(zip(keys, total))
+
+
 def build_train_step(model: torch.nn.Module, cfg, args: RunConfig,
                      optimizer: torch.optim.Optimizer, device="cuda"
                      ) -> Callable[[Dict, int], Dict[str, torch.Tensor]]:
@@ -197,24 +238,34 @@ def build_train_step(model: torch.nn.Module, cfg, args: RunConfig,
     a leading micro-batch axis [A, B/A, ...], the gradients are averaged
     over A before the one update, ``loss/*`` averaged and ``correct/*``
     summed (JAX train_step.py:232-256).  ``seed`` is the step's 64-bit
-    dropout seed, drawn by the caller on the host; ``cfg`` is the model's
-    configuration, checked against the tasks of ``args``."""
+    dropout seed, drawn by the caller on the host and the same on every
+    rank; ``cfg`` is the model's configuration, checked against the tasks
+    of ``args``.  Under a process group the model is wrapped in DDP, which
+    synchronises the gradients at the last micro-step alone."""
     device = resolve_device(device)
     _check_model(model, cfg, args, device)
     tasks = _task_config(args, training=True)
     accum = args.gradient_accumulation_steps
     params = [p for p in model.parameters() if p.requires_grad]
+    grouped = torch.distributed.is_initialized()
+    world, rank = distributed.world_size(), distributed.rank()
+    net = data_parallel(model, device) if grouped else model
+    total_counts = distributed.sum_across_ranks if grouped else None
 
     def step(batch, seed: int) -> Dict[str, torch.Tensor]:
-        model.train()
+        net.train()
         batch = to_device(batch, device)
         micro = ([batch] if accum == 1 else
                  [{k: v[i] for k, v in batch.items()} for i in range(accum)])
         metrics: Dict[str, torch.Tensor] = {}
         for i, mb in enumerate(micro):
             mb_seed = seed if accum == 1 else site_seed(seed, MICRO_STEP_SITE + i)
-            loss, m = loss_fn(model, mb, tasks, mb_seed)
-            loss.backward()
+            sync = (net.no_sync() if grouped and i < accum - 1
+                    else contextlib.nullcontext())
+            with sync:
+                loss, m = loss_fn(net, mb, tasks, mb_seed, rank, total_counts)
+                # DDP averages the gradients of the ranks' shares
+                (loss * world if world > 1 else loss).backward()
             for k, v in m.items():
                 metrics[k] = metrics[k] + v.detach() if k in metrics else v.detach()
         if accum > 1:
@@ -222,6 +273,8 @@ def build_train_step(model: torch.nn.Module, cfg, args: RunConfig,
                                 float(accum))
             metrics = {k: v / accum if k.startswith("loss/") else v
                        for k, v in metrics.items()}
+        if grouped:
+            metrics = _sum_metrics(metrics)
         optimizer.step()
         optimizer.zero_grad(set_to_none=True)
         return metrics
@@ -234,14 +287,19 @@ def build_eval_step(model: torch.nn.Module, cfg, args: RunConfig,
                     ) -> Callable[[Dict], Dict[str, torch.Tensor]]:
     """Returns ``eval_step(batch) -> metrics`` (loss and correct count per
     task) in eval mode, with the eval losses of test_epoch and val_epoch
-    (reference utils_init.py:306-312, 382-410)."""
+    (reference utils_init.py:306-312, 382-410).  Under a process group the
+    losses are this rank's shares of the global batch's and the counts its
+    own: the caller sums both over the ranks (``Engine.evaluate``)."""
     device = resolve_device(device)
     _check_model(model, cfg, args, device)
     tasks = _task_config(args, training=False)
+    total_counts = (distributed.sum_across_ranks
+                    if torch.distributed.is_initialized() else None)
 
     def eval_step(batch) -> Dict[str, torch.Tensor]:
         model.eval()
         with torch.no_grad():
-            return loss_fn(model, to_device(batch, device), tasks)[1]
+            return loss_fn(model, to_device(batch, device), tasks,
+                           total_counts=total_counts)[1]
 
     return eval_step

@@ -23,6 +23,15 @@ optimizer, it also restores the moments and ``step_count``, from the
 port's ``optimizer_state_dict`` or from a JAX ``jax_optimizer_state``
 (unpickled with an allow-list; its ``mu`` / ``nu`` trees cross over as the
 weights do), so that a run begun on a TPU resumes here.
+
+``save_dcp`` is the counterpart of the JAX package's ``--orbax_checkpoints``
+(``save_orbax``, ``checkpoint.py:211``): a ``torch.distributed.checkpoint``
+directory ``<save_name>.dcp`` holding the weights, the ``AdamWRef`` moments,
+``step_count``, the step and the epoch, written by every rank of a
+data-parallel run together (each tensor once, the ranks sharing the
+writes).  ``load_checkpoint`` reads such a directory with or without a
+process group.  A JAX ``.orbax`` directory needs ``orbax``, which this
+package does not use: it is refused with the ``.bin`` to write instead.
 """
 from __future__ import annotations
 
@@ -224,7 +233,17 @@ def load_checkpoint(path, model: torch.nn.Module, optimizer=None
     dead ``q_dense`` parameters and the non-weight entries left out).
     With ``optimizer``, the file's optimizer state (the port's or the JAX
     package's) replaces its moments and ``step_count``; a file without one
-    leaves the optimizer as it is."""
+    leaves the optimizer as it is.  ``path`` may also be a ``save_dcp``
+    directory."""
+    if is_dcp_checkpoint(path):
+        return _load_dcp(path, model, optimizer)
+    if is_orbax_checkpoint(path):
+        stem = os.path.splitext(str(path).rstrip("/"))[0]
+        raise ValueError(
+            f"{path} is an Orbax checkpoint of the JAX package: reading it "
+            f"needs orbax, which this package does not use. Load it with the "
+            f"JAX package and write it with its save_checkpoint as "
+            f"{stem}.bin, then pass that file")
     weights_path, tempdir = resolve_pretrained(path)
     try:
         payload = torch.load(weights_path, map_location="cpu",
@@ -272,6 +291,90 @@ def load_checkpoint(path, model: torch.nn.Module, optimizer=None
 
 
 def delete_checkpoint(save_dir, save_name) -> None:
+    """Removes ``<save_name>.bin`` and ``<save_name>.dcp``, where present."""
     path = checkpoint_path(save_dir, save_name)
     if os.path.exists(path):
         os.unlink(path)
+    shutil.rmtree(dcp_path(save_dir, save_name), ignore_errors=True)
+
+
+# --------------------------------------------------------------------------- #
+# torch.distributed.checkpoint directories (--orbax_checkpoints)
+# --------------------------------------------------------------------------- #
+def dcp_path(save_dir, save_name) -> str:
+    return os.path.join(save_dir, f"{save_name}.dcp")
+
+
+def is_dcp_checkpoint(path) -> bool:
+    """A directory written by ``save_dcp`` (its ``.metadata`` file)."""
+    return os.path.isfile(os.path.join(str(path), ".metadata"))
+
+
+def is_orbax_checkpoint(path) -> bool:
+    """A directory written by the JAX package's ``save_orbax`` (JAX
+    ``checkpoint.py:193-208``), not one holding ``pytorch_model.bin``."""
+    if not os.path.isdir(path) or os.path.exists(
+            os.path.join(path, "pytorch_model.bin")):
+        return False
+    markers = ("manifest.ocdbt", "_CHECKPOINT_METADATA", "_METADATA",
+               "ocdbt.process_0", "zarr.json", ".zarray")
+    return any(os.path.exists(os.path.join(path, m)) for m in markers)
+
+
+def _weights(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """The model's tensors by state-dict name (the tied decoder weight is
+    the word embedding's and is left out), sharing the model's storage."""
+    return {k: v for k, v in model.state_dict().items() if k != _TIED}
+
+
+def _moments(model: torch.nn.Module, optimizer) -> Dict[str, Dict]:
+    names = {id(p): n for n, p in model.named_parameters()}
+    out: Dict[str, Dict] = {"exp_avg": {}, "exp_avg_sq": {}}
+    for p in _flat_params(optimizer):
+        for k, v in optimizer.state[p].items():
+            out[k][names[id(p)]] = v
+    return out
+
+
+def save_dcp(save_dir, save_name, model: torch.nn.Module, optimizer=None,
+             step: int = 0, epoch: int = 0) -> str:
+    """Writes ``<save_dir>/<save_name>.dcp`` with
+    ``torch.distributed.checkpoint`` and returns its path.  Under a process
+    group it is collective: every rank calls it with its replica."""
+    import torch.distributed.checkpoint as dcp
+
+    path = dcp_path(save_dir, save_name)
+    state: Dict[str, Any] = {"model": _weights(model),
+                             "step": torch.tensor(int(step)),
+                             "epoch": torch.tensor(int(epoch))}
+    if optimizer is not None:
+        state["optimizer"] = _moments(model, optimizer)
+        state["step_count"] = torch.tensor(int(optimizer.step_count))
+    dcp.save(state, checkpoint_id=path)
+    return path
+
+
+@torch.no_grad()
+def _load_dcp(path, model: torch.nn.Module, optimizer=None
+              ) -> Tuple[List[str], List[str], int, int]:
+    """``load_checkpoint`` of a ``save_dcp`` directory: every weight is
+    read in place (none may be missing); with ``optimizer`` the moments and
+    ``step_count`` too, where the directory has them."""
+    import torch.distributed.checkpoint as dcp
+
+    stored = set(dcp.FileSystemReader(str(path)).read_metadata()
+                 .state_dict_metadata)
+    state: Dict[str, Any] = {"model": _weights(model),
+                             "step": torch.tensor(0), "epoch": torch.tensor(0)}
+    with_moments = optimizer is not None and "step_count" in stored
+    if with_moments:
+        state["step_count"] = torch.tensor(0)
+        state["optimizer"] = {
+            k: {n: torch.zeros_like(p) for n, p in model.named_parameters()
+                if f"optimizer.{k}.{n}" in stored}
+            for k in ("exp_avg", "exp_avg_sq")}
+    dcp.load(state, checkpoint_id=str(path))
+    if with_moments:
+        load_optimizer_state_by_name(model, optimizer, {
+            "step_count": int(state["step_count"]), **state["optimizer"]})
+    return [], [], int(state["step"]), int(state["epoch"])

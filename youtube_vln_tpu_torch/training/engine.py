@@ -1,5 +1,6 @@
 """Training engine: data wiring, epoch loops and checkpoint management
-(counterpart of ``youtube_vln_tpu/training/engine.py``), on one device.
+(counterpart of ``youtube_vln_tpu/training/engine.py``), on one device or
+data-parallel over a process group (``parallel/distributed.py``).
 
 Replaces the reference's ``utils/dataset/dataset_init.py`` (loader wiring),
 ``utils/utils_init.py`` (train/test/val epochs) and the orchestration in
@@ -10,8 +11,18 @@ Replaces the reference's ``utils/dataset/dataset_init.py`` (loader wiring),
   * host-to-device prefetch (``device.prefetch_to_device``: pinned memory,
     non-blocking copies) overlaps the input pipeline with the steps
   * checkpoints are reference-interop ``.bin`` files with the optimizer
-    state for ``--resume`` (``training/checkpoint.py``)
-  * an optional ``torch.profiler`` trace of steps 2-8 of the first epoch
+    state for ``--resume``, written by rank 0, or with
+    ``--orbax_checkpoints`` ``torch.distributed.checkpoint`` directories
+    written by every rank together (``training/checkpoint.py``)
+  * an optional ``torch.profiler`` trace of steps 2-8 of the first epoch,
+    one per rank
+
+Under a process group of W ranks ``--batch_size`` stays the global batch:
+each rank loads ``batch // accum // W`` rows per micro-step from its shard
+of the data (``Loader(num_shards=W, shard=rank)``), the step's losses and
+metrics are those of the global batch (``parallel/train_step.py``), and
+``evaluate`` sums its totals over the ranks, so every rank returns the
+same dict.
 """
 from __future__ import annotations
 
@@ -31,7 +42,10 @@ from ..data.loader import Loader, microbatch_reshape
 from ..data.tokenizer import load_tokenizer
 from ..device import prefetch_to_device, resolve_device
 from ..models import Lily
+from ..parallel import distributed
 from ..parallel import train_step as ts
+from ..parallel.mesh import mesh_extents
+from ..utils.misc import NoneLogger
 from . import checkpoint as ckpt
 
 logger = logging.getLogger(__name__)
@@ -151,7 +165,8 @@ def load_beam_dataset(tag: str, args: RunConfig, tokenizer, reader,
 
 class Engine:
     """Owns the model, the optimizer, the data loaders and the epoch loops,
-    on ``device`` (CUDA unless the caller asks for the CPU)."""
+    on ``device`` (CUDA unless the caller asks for the CPU), as one rank of
+    the process group when there is one."""
 
     def __init__(self, args: RunConfig, model_cfg: LilyConfig,
                  save_folder: Optional[Path] = None, run_logger=None,
@@ -161,8 +176,11 @@ class Engine:
         self.args = args
         self.cfg = model_cfg
         self.save_folder = Path(save_folder) if save_folder else None
-        self.log = run_logger or logger
+        self.world, self.rank = distributed.world_size(), distributed.rank()
+        # the log and the writer (set by the entries) are rank 0's alone
+        self.log = (run_logger or logger) if self.rank == 0 else NoneLogger()
         self.writer = None
+        mesh_extents(args.mesh_shape, args.mesh_axes, self.world)
         self.tokenizer = resolve_tokenizer(args)
 
         # datasets ------------------------------------------------------- #
@@ -189,12 +207,14 @@ class Engine:
                     self.val_seen_ds = _maybe_subset(self.val_seen_ds, 8)
                     self.val_unseen_ds = _maybe_subset(self.val_unseen_ds, 4)
 
-        # args.batch_size is the global batch (dataset_init.py:204-208) of
-        # one process: each step loads batch // accum rows per micro-step
+        # args.batch_size is the global batch (dataset_init.py:204-208):
+        # each rank loads batch // accum // world rows per micro-step from
+        # its shard, and the ranks' rows make the global batch
         accum = args.gradient_accumulation_steps
-        self.step_batch = max(1, args.batch_size // accum)
+        self.step_batch = max(1, args.batch_size // accum // self.world)
         self.train_loader = Loader(self.train_ds, self.step_batch * accum,
                                    shuffle=True, seed=args.seed,
+                                   num_shards=self.world, shard=self.rank,
                                    prefetch=args.host_prefetch,
                                    num_workers=args.num_workers)
         self.eval_loaders = {}
@@ -204,6 +224,7 @@ class Engine:
             if ds is not None:
                 self.eval_loaders[name] = Loader(
                     ds, self.step_batch, shuffle=False, seed=args.seed,
+                    num_shards=self.world, shard=self.rank,
                     drop_last=False, prefetch=args.host_prefetch,
                     num_workers=args.num_workers)
 
@@ -265,7 +286,8 @@ class Engine:
         prof.stop()
         out = Path(self.args.profile_dir)
         out.mkdir(parents=True, exist_ok=True)
-        path = out / f"train_epoch{epoch}_steps{first}-{end - 1}.pt.trace.json"
+        rank = f".rank{self.rank}" if self.world > 1 else ""
+        path = out / f"train_epoch{epoch}_steps{first}-{end - 1}{rank}.pt.trace.json"
         prof.export_chrome_trace(str(path))
         self.log.info(f"profiler trace written to {path}")
 
@@ -321,7 +343,11 @@ class Engine:
     def evaluate(self, name: str, epoch: int = 0) -> Dict[str, float]:
         """test_epoch / val_epoch equivalent: per-task loss averaged over
         batches and accuracy = correct / samples over a split (reference
-        utils_init.py:315-446)."""
+        utils_init.py:315-446).  Under a process group the batches are the
+        global batches of the ranks' shards (a split that the world does
+        not divide is wrap-padded, as ``shard_indices`` pads it): the sums
+        and the sample count are summed over the ranks once, and every rank
+        returns the same dict."""
         loader = self.eval_loaders[name]
         n_batches = 0
         n_samples = 0
@@ -332,10 +358,11 @@ class Engine:
             n_batches += 1
             for k, v in metrics.items():
                 acc[k] = v if k not in acc else acc[k] + v
-        # one stacked readback for the split
+        # one stacked collective and readback for the split
         keys = sorted(acc)
-        vals = (torch.stack([acc[k].float() for k in keys]).tolist()
-                if keys else [])
+        totals = torch.stack([acc[k].float() for k in keys]
+                             + [torch.tensor(float(n_samples), device=self.device)])
+        *vals, n_samples = distributed.sum_across_ranks(totals).tolist()
         out: Dict[str, float] = {}
         for k, v in zip(keys, vals):
             if k.startswith("loss/"):
@@ -353,8 +380,17 @@ class Engine:
 
     # -------------------------------------------------------------------- #
     def save(self, save_name, epoch: int) -> str:
+        """Saves the model and the optimizer; returns the path.  Every rank
+        calls it: the ``.bin`` is written by rank 0 alone, a
+        ``--orbax_checkpoints`` directory by all of them together."""
         assert self.save_folder is not None
         self.save_folder.mkdir(parents=True, exist_ok=True)
+        if self.args.orbax_checkpoints:
+            return ckpt.save_dcp(self.save_folder, save_name, self.model,
+                                 optimizer=self.optimizer,
+                                 step=self.optimizer.step_count, epoch=epoch)
+        if self.rank != 0:
+            return ckpt.checkpoint_path(self.save_folder, save_name)
         return ckpt.save_checkpoint(
             self.save_folder, save_name, self.model, self.cfg,
             optimizer=self.optimizer, step=self.optimizer.step_count,

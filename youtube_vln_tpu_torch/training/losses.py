@@ -7,10 +7,19 @@ padding included, and ``opt_mask`` [bs, num_cand] weights them inside the
 loss; padded candidates contribute nothing.  All reductions run in float32.
 Every function returns device tensors and never reads a value back to the
 host.
+
+Each task loss is a sum over its terms divided by their count (``*_terms``
+return the two).  Under data parallelism ``compute_task_losses`` takes
+``total_counts``, which sums the counts over the ranks, so each rank's loss
+is its share of the global batch's loss: the global sum over the global
+count, as the JAX package computes it on its global arrays
+(``losses.py:47,73,87,98-99,120,155``).  The reference instead averages
+per-rank means (``SURVEY.md:434``); the two differ whenever ranks hold
+different counts, as the masked tasks do in almost every batch.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -33,6 +42,20 @@ def _take(x, idx):
     return torch.gather(x, -1, idx.long()[..., None])[..., 0]
 
 
+def _ratio(total, count):
+    """total / count, 0 rather than nan when nothing counts."""
+    return total / torch.clamp(count, min=1.0)
+
+
+def masked_vision_terms(predictions, targets, target_mask, row_mask):
+    """(sum, count) of ``masked_vision_loss``."""
+    logp = F.log_softmax(predictions.float(), dim=-1)
+    t = targets.float()
+    kl = _xlogy(t, t) - t * logp
+    w = (target_mask.float() * row_mask.float()[:, None])[..., None]
+    return (kl * w).sum(), w[..., 0].sum()
+
+
 def masked_vision_loss(predictions, targets, target_mask, row_mask):
     """KLDiv(log_softmax(pred), target) masked and normalised by the count of
     masked regions (reference utils_init.py:117-128).
@@ -40,12 +63,8 @@ def masked_vision_loss(predictions, targets, target_mask, row_mask):
     predictions: [N, S_v, C] raw logits; targets: [N, S_v, C] distributions;
     target_mask: [N, S_v] 1 where the region was masked; row_mask: [N] 1 for
     real (non-padding) candidates."""
-    logp = F.log_softmax(predictions.float(), dim=-1)
-    t = targets.float()
-    kl = _xlogy(t, t) - t * logp
-    w = (target_mask.float() * row_mask.float()[:, None])[..., None]
-    numel = torch.clamp(w[..., 0].sum(), min=1.0)
-    return (kl * w).sum() / numel
+    return _ratio(*masked_vision_terms(predictions, targets, target_mask,
+                                       row_mask))
 
 
 def masked_vision_loss_sparse(predictions, target_idx, target_rows, row_mask,
@@ -55,6 +74,15 @@ def masked_vision_loss_sparse(predictions, target_idx, target_rows, row_mask,
     targets.  predictions: [N, S_v, C], or with ``pre_gathered`` [N, M, C]
     aligned with ``target_idx``; target_idx: [N, M] (``num_regions`` / S_v
     is the padding sentinel); target_rows: [N, M, C]; row_mask: [N]."""
+    return _ratio(*masked_vision_terms_sparse(
+        predictions, target_idx, target_rows, row_mask,
+        pre_gathered=pre_gathered, num_regions=num_regions))
+
+
+def masked_vision_terms_sparse(predictions, target_idx, target_rows, row_mask,
+                               *, pre_gathered: bool = False,
+                               num_regions: int = None):
+    """(sum, count) of ``masked_vision_loss_sparse``."""
     if pre_gathered:
         assert num_regions is not None
         s_v = num_regions
@@ -70,8 +98,16 @@ def masked_vision_loss_sparse(predictions, target_idx, target_rows, row_mask,
     t = target_rows.float()
     kl = _xlogy(t, t) - t * logp
     w = valid.float()[..., None]
-    numel = torch.clamp(w[..., 0].sum(), min=1.0)
-    return (kl * w).sum() / numel
+    return (kl * w).sum(), w[..., 0].sum()
+
+
+def masked_language_terms(predictions, targets, row_mask):
+    """(sum, count) of ``masked_language_loss``."""
+    logp = F.log_softmax(predictions.float(), dim=-1)
+    valid = (targets >= 0) & (row_mask[:, None] > 0)
+    nll = -_take(logp, torch.where(valid, targets, 0))
+    nll = torch.where(valid, nll, 0.0)
+    return nll.sum(), valid.float().sum()
 
 
 def masked_language_loss(predictions, targets, row_mask):
@@ -80,25 +116,25 @@ def masked_language_loss(predictions, targets, row_mask):
 
     predictions: [N, S_t, V]; targets: [N, S_t] with -1 = ignore; row_mask:
     [N]."""
-    logp = F.log_softmax(predictions.float(), dim=-1)
-    valid = (targets >= 0) & (row_mask[:, None] > 0)
-    nll = -_take(logp, torch.where(valid, targets, 0))
-    nll = torch.where(valid, nll, 0.0)
-    return nll.sum() / torch.clamp(valid.float().sum(), min=1.0)
+    return _ratio(*masked_language_terms(predictions, targets, row_mask))
+
+
+def ranking_terms_train(logits, opt_mask, target):
+    """(sum, count, correct_count) of ``ranking_loss_train``."""
+    pred = pad_packed(logits, opt_mask)
+    logp = F.log_softmax(pred, dim=-1)
+    valid = target >= 0
+    nll = -_take(logp, torch.where(valid, target, 0))
+    correct = (pred.argmax(dim=1) == target).float().sum()
+    return torch.where(valid, nll, 0.0).sum(), valid.float().sum(), correct
 
 
 def ranking_loss_train(logits, opt_mask, target):
     """CE over candidates with ignore_index=-1 and the argmax accuracy
     (reference utils_init.py:136-141).  logits: [bs, num_cand]; target:
     [bs] int (-1 = ignore).  Returns (loss, correct_count)."""
-    pred = pad_packed(logits, opt_mask)
-    logp = F.log_softmax(pred, dim=-1)
-    valid = target >= 0
-    nll = -_take(logp, torch.where(valid, target, 0))
-    loss = torch.where(valid, nll, 0.0).sum() / torch.clamp(
-        valid.float().sum(), min=1.0)
-    correct = (pred.argmax(dim=1) == target).float().sum()
-    return loss, correct
+    total, count, correct = ranking_terms_train(logits, opt_mask, target)
+    return _ratio(total, count), correct
 
 
 def _bce_with_logits(x, z, pos_weight=None):
@@ -110,17 +146,22 @@ def _bce_with_logits(x, z, pos_weight=None):
     return (1.0 - z) * x + log_weight * softplus_neg
 
 
+def ranking_terms_eval(logits, opt_mask, target):
+    """(sum, count, correct_count) of ``ranking_loss_eval``."""
+    m = opt_mask.float()
+    pred = torch.where(opt_mask.bool(), logits.float(), 0.0)
+    bce = _bce_with_logits(pred, target.float()) * m
+    top = pad_packed(logits, opt_mask).argmax(dim=1)
+    correct = _take(target.float(), top).sum()
+    return bce.sum(), m.sum(), correct
+
+
 def ranking_loss_eval(logits, opt_mask, target):
     """BCE-with-logits against multi-hot success and the top-1 success
     gather (reference utils_init.py:142-146); padded candidates are left out
     of the mean.  target: [bs, num_cand].  Returns (loss, correct_count)."""
-    m = opt_mask.float()
-    pred = torch.where(opt_mask.bool(), logits.float(), 0.0)
-    bce = _bce_with_logits(pred, target.float()) * m
-    loss = bce.sum() / torch.clamp(m.sum(), min=1.0)
-    top = pad_packed(logits, opt_mask).argmax(dim=1)
-    correct = _take(target.float(), top).sum()
-    return loss, correct
+    total, count, correct = ranking_terms_eval(logits, opt_mask, target)
+    return _ratio(total, count), correct
 
 
 def traj_judge_targets(num_cand: int, *, ranking_or_no_judge_data: bool,
@@ -138,6 +179,18 @@ def traj_judge_targets(num_cand: int, *, ranking_or_no_judge_data: bool,
     return idx < (num_cand - num_negatives)
 
 
+def traj_judge_terms(logits, opt_mask, target_row):
+    """(sum, count, correct_count) of ``traj_judge_loss``."""
+    bs, nc = logits.shape
+    z = target_row.float()[None, :].expand(bs, nc)
+    pos_weight = nc / target_row.float().sum() - 1.0
+    m = opt_mask.float()
+    pred = torch.where(opt_mask.bool(), logits.float(), 0.0)
+    bce = _bce_with_logits(pred, z, pos_weight) * m
+    correct = (((torch.sigmoid(pred) > 0.5) == (z > 0.5)).float() * m).sum() / nc
+    return bce.sum(), m.sum(), correct
+
+
 def traj_judge_loss(logits, opt_mask, target_row):
     """BCE-with-logits with pos_weight = negatives / positives from the
     target row (reference utils_init.py:160-162), padded candidates left
@@ -146,57 +199,50 @@ def traj_judge_loss(logits, opt_mask, target_row):
 
     logits: [bs, num_cand]; target_row: [num_cand] bool.  Returns (loss,
     correct_count)."""
-    bs, nc = logits.shape
-    z = target_row.float()[None, :].expand(bs, nc)
-    pos_weight = nc / target_row.float().sum() - 1.0
-    m = opt_mask.float()
-    pred = torch.where(opt_mask.bool(), logits.float(), 0.0)
-    bce = _bce_with_logits(pred, z, pos_weight) * m
-    loss = bce.sum() / torch.clamp(m.sum(), min=1.0)
-    correct = (((torch.sigmoid(pred) > 0.5) == (z > 0.5)).float() * m).sum() / nc
-    return loss, correct
+    total, count, correct = traj_judge_terms(logits, opt_mask, target_row)
+    return _ratio(total, count), correct
 
 
 def compute_task_losses(outputs: Dict[str, torch.Tensor], batch: Dict,
-                        cfg_tasks: Dict) -> Tuple[torch.Tensor, Dict]:
+                        cfg_tasks: Dict,
+                        total_counts: Optional[Callable] = None
+                        ) -> Tuple[torch.Tensor, Dict]:
     """Sum of the enabled task losses as the reference's train_epoch sums
     them (utils_init.py:192-239): vision + language + ranking +
     traj_loss_scale * traj.  ``outputs`` come from ``Lily`` on the flattened
     [bs * nc, ...] batch; ``batch`` holds opt_mask [bs, nc], ranking_target,
     image_targets, image_targets_mask, instr_targets (see
     ``parallel/train_step.py``); ``cfg_tasks`` is ``_task_config``'s dict.
+    ``total_counts`` maps this process's per-task counts (one f32 vector)
+    to the global batch's, so each loss is this process's share of the
+    global one (its sum over the global count); None in one process.
     Returns (total_loss, metrics of per-task losses and correct counts)."""
     opt_mask = batch["opt_mask"]
     bs, nc = opt_mask.shape
     row_mask = opt_mask.reshape(-1)
-    metrics: Dict[str, torch.Tensor] = {}
-    total = torch.zeros((), dtype=torch.float32, device=opt_mask.device)
+    terms: Dict[str, Tuple] = {}   # task -> (sum, count), in summing order
+    correct: Dict[str, torch.Tensor] = {}
 
     if cfg_tasks["masked_vision"]:
         if "image_targets_idx" in batch:
-            loss = masked_vision_loss_sparse(
+            terms["vision"] = masked_vision_terms_sparse(
                 outputs["vision"], batch["image_targets_idx"],
                 batch["image_targets"], row_mask,
                 pre_gathered=batch.get("vision_pre_gathered", False),
                 num_regions=batch.get("num_regions"))
         else:
-            loss = masked_vision_loss(outputs["vision"], batch["image_targets"],
-                                      batch["image_targets_mask"], row_mask)
-        metrics["loss/vision"] = loss
-        total = total + loss
+            terms["vision"] = masked_vision_terms(
+                outputs["vision"], batch["image_targets"],
+                batch["image_targets_mask"], row_mask)
     if cfg_tasks["masked_language"]:
-        loss = masked_language_loss(outputs["language"],
-                                    batch["instr_targets"], row_mask)
-        metrics["loss/language"] = loss
-        total = total + loss
+        terms["language"] = masked_language_terms(
+            outputs["language"], batch["instr_targets"], row_mask)
     if cfg_tasks["ranking"]:
         logits = outputs["ranking"].reshape(bs, nc)
-        loss_fn = (ranking_loss_train if cfg_tasks["training"]
-                   else ranking_loss_eval)
-        loss, correct = loss_fn(logits, opt_mask, batch["ranking_target"])
-        metrics["loss/ranking"] = loss
-        metrics["correct/ranking"] = correct
-        total = total + loss
+        terms_fn = (ranking_terms_train if cfg_tasks["training"]
+                    else ranking_terms_eval)
+        *terms["ranking"], correct["ranking"] = terms_fn(
+            logits, opt_mask, batch["ranking_target"])
     if cfg_tasks["traj_judge"]:
         logits = outputs["traj"].reshape(bs, nc)
         target_row = traj_judge_targets(
@@ -204,10 +250,22 @@ def compute_task_losses(outputs: Dict[str, torch.Tensor], batch: Dict,
                                           or cfg_tasks["not_traj_judge_data"]),
             pretrain=cfg_tasks["pretrain"],
             num_negatives=cfg_tasks["num_negatives"], device=logits.device)
-        loss, correct = traj_judge_loss(logits, opt_mask, target_row)
-        metrics["loss/traj"] = loss
-        metrics["correct/traj"] = correct
-        total = total + cfg_tasks["traj_loss_scale"] * loss
+        *terms["traj"], correct["traj"] = traj_judge_terms(logits, opt_mask,
+                                                           target_row)
+
+    metrics: Dict[str, torch.Tensor] = {}
+    total = torch.zeros((), dtype=torch.float32, device=opt_mask.device)
+    if terms:
+        counts = torch.stack([count for _, count in terms.values()])
+        if total_counts is not None:
+            counts = total_counts(counts)
+        for (task, (task_sum, _)), count in zip(terms.items(), counts):
+            loss = _ratio(task_sum, count)
+            metrics[f"loss/{task}"] = loss
+            if task in correct:
+                metrics[f"correct/{task}"] = correct[task]
+            total = total + (cfg_tasks["traj_loss_scale"] * loss
+                             if task == "traj" else loss)
 
     # the reference logs loss/train as the UNSCALED sum of task losses
     # (utils_init.py:226-228) while backprop uses traj_loss_scale

@@ -4,9 +4,12 @@ The flag set is the JAX parser's, option for option, with the same
 defaults, so the published recipes (README.md:103-183) run unchanged;
 ``--device`` defaults to ``cuda`` and takes ``cpu`` on request.  Parsed
 args fold into one :class:`~youtube_vln_tpu_torch.config.RunConfig`;
-``--no_pallas`` maps to ``use_attention_kernels=False``.  The flags of
-the JAX package with no counterpart here yet (mesh, compilation cache,
-Orbax) are refused unless left at their defaults.
+``--no_pallas`` maps to ``use_attention_kernels=False``.
+``--mesh_shape`` / ``--mesh_axes`` name the data-parallel axis
+(``parallel/mesh.py`` refuses a ``model`` axis above 1) and
+``--orbax_checkpoints`` saves ``torch.distributed.checkpoint`` directories.
+The flag of the JAX package with no counterpart here yet
+(``--compilation_cache_dir``) is refused unless left at its default.
 
 Note: the reference's ``boolean_string`` helper returns False for every
 accepted input (cli.py:4-9), making ``--in_memory`` and
@@ -20,13 +23,11 @@ import dataclasses
 from typing import Optional, Sequence
 
 from ..config import RunConfig
+from ..parallel.mesh import mesh_extents
 
 # flag -> (default, the ROADMAP.md item that will port it)
 TPU_ONLY = {
-    "mesh_shape": ([], "A9 (DDP) and A10 (tensor parallelism)"),
-    "mesh_axes": (["data", "model"], "A9 (DDP) and A10 (tensor parallelism)"),
     "compilation_cache_dir": ("", "A13 (tooling)"),
-    "orbax_checkpoints": (False, "A9 (DDP)"),
 }
 
 
@@ -150,9 +151,9 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("--np", action="store_true", default=False)
     p.add_argument("--window", default=20, type=int)
 
-    # transport and kernels, in the JAX parser's order; the flags with no
-    # counterpart here yet are accepted at their defaults and refused
-    # otherwise (TPU_ONLY names the item that will port each)
+    # transport and kernels, in the JAX parser's order; the flag with no
+    # counterpart here yet is accepted at its default and refused
+    # otherwise (TPU_ONLY names the item that will port it)
     tpu = p.add_argument_group("transport and kernels")
     tpu.add_argument("--mesh_shape", nargs="*", type=int, default=[])
     tpu.add_argument("--mesh_axes", nargs="*", type=str,
@@ -211,6 +212,8 @@ def args_to_run_config(args: argparse.Namespace) -> RunConfig:
         if (list(value) if isinstance(value, (list, tuple)) else value) != default:
             raise ValueError(f"--{name} {value!r}: not ported to this package "
                              f"yet; ROADMAP.md Queue A item {item} ports it")
+    # the data axis is resolved against the world size by the Engine
+    mesh_extents(args.mesh_shape, args.mesh_axes)
     fields = {f.name for f in dataclasses.fields(RunConfig)}
     kv = {}
     for k, v in vars(args).items():
