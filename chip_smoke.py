@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py [--seed N]
 
-(``--ddp-child SPEC`` runs one rank of phase 14; the script starts those
-itself.)
+(``--ddp-child SPEC`` runs one rank of phase 14 or 15; the script starts
+those itself.)
 
 Phases, each fatal on failure:
   1. the card's name and power limit (nvidia-smi);
@@ -108,14 +108,33 @@ Phases, each fatal on failure:
      one process, equal to rank 0's weights; a child that fails or hangs
      (420 s) fails the run; prints a ``ddp`` JSON line (gloo's times are
      not a speed number);
- 15. a ``kernels`` JSON line: per kernel its launches on the eval, the
+ 15. tensor parallelism over heads, after phase 14: (a) B1-B4 at the
+     train shapes (bf16 and f32, dropout 0 and 0.1) on every shard of a
+     1 x 2 and a 2 x 2 mesh with the head mapping of the Philox stream:
+     bitwise the slice of the full launch, the identity mapping bitwise the
+     launch without one; B5/B6 with the data coordinate's row0 once per
+     model rank, bitwise the full launch's rows; (b) two gloo child ranks
+     on the one card under ``--mesh_shape 1 2`` (global batch 8,
+     ``--remat``, an R2R fixture of 18 instructions): the 30RS train entry
+     in f32 with dropout 0 against one process (per-step losses within
+     1e-4 relative), its gathered ``0.bin`` equal in keys and shapes to the
+     one process's; in bf16 with dropout 0.1, the replicated parameters
+     bitwise equal across the ranks, the ``.dcp`` loaded in one process
+     equal to the ranks' gathered weights and moments; (c) the MRT pretrain
+     entry under ``--mesh_shape 1 2`` with the epilogue kernels, 2 steps:
+     6 launches of B1-B4 and 24 of B5/B6 per micro-step per rank, every B5
+     output bitwise equal on the two ranks; prints a ``tp`` JSON line (gloo
+     times, not a speed number);
+ 16. a ``kernels`` JSON line: per kernel its launches on the eval, the
      fine-tuning, the pretraining, the test entry (run A), the train entry,
-     the pretrain entry and the data-parallel (phase 14 b and c, every rank)
-     paths, error, time, bound, plain time
+     the pretrain entry, the data-parallel (phase 14 b and c, every rank)
+     and the tensor-parallel (phase 15 b and c, every rank) paths, error,
+     time, bound, plain time
      and a library call's time at the train shapes (B1/B2 also at the eval
      shapes, B5/B6 at the pretraining shape); B1-B4 also carry the bf16
      D = 128 registers and blocks per SM, B6 those of its bf16 instance.
-The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
+Before the kernels line, a ``phase_s`` line gives the seconds of each
+phase.  The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or without the package beside it, the script exits non-zero.
 """
 import argparse
@@ -159,6 +178,19 @@ B6_BLOCKS_PER_SM, B6_WARPS_PER_SM = 2, 32
 # carries -10000 and a logit is rounded at the f32 ulp of 10000 (9.8e-4)
 # whatever the order of summation.
 TOL = {"bfloat16": 1e-2, "float32": 1e-3}
+
+
+# seconds per phase of this run (``phase_timer``), printed before the kernels line
+PHASE_S = {}
+
+
+@contextlib.contextmanager
+def phase_timer(phase: str):
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        PHASE_S[phase] = round(time.perf_counter() - t0, 1)
 
 
 def fail(msg: str) -> None:
@@ -1383,30 +1415,30 @@ def plain_launchers():
     def bias_or_zeros(bias, b, s, device):
         return torch.zeros(b, s, device=device) if bias is None else bias
 
-    def attention_fwd(q, k, v, bias, rate, seed, want_lse, stream0=0):
+    def attention_fwd(q, k, v, bias, rate, seed, want_lse, *streams):
         bias = bias_or_zeros(bias, q.shape[0], k.shape[2], q.device)
         lse = A.attention_lse_reference(q, k, bias) if want_lse else None
-        return (A.attention_reference(q, k, v, bias, rate, seed, 0, stream0), lse,
+        return (A.attention_reference(q, k, v, bias, rate, seed, 0, *streams), lse,
                 (q, k, v, bias))
 
-    def attention_bwd(q, k, v, bias, o, do, lse, rate, seed, stream0=0):
-        return A.attention_bwd_reference(q, k, v, bias, do, rate, seed, 0, stream0)
+    def attention_bwd(q, k, v, bias, o, do, lse, rate, seed, *streams):
+        return A.attention_bwd_reference(q, k, v, bias, do, rate, seed, 0, *streams)
 
     def bi_attention_fwd(q1, k1, v1, q2, k2, v2, v_bias, t_bias, rate1, rate2,
-                         seed, want_lse, stream0=0):
+                         seed, want_lse, *streams):
         vb = bias_or_zeros(v_bias, q1.shape[0], k1.shape[2], q1.device)
         tb = bias_or_zeros(t_bias, q1.shape[0], k2.shape[2], q1.device)
         ctx1, ctx2 = A.bi_attention_reference(q1, k1, v1, q2, k2, v2, vb, tb,
-                                              rate1, rate2, seed, stream0)
+                                              rate1, rate2, seed, *streams)
         lse1, lse2 = ((A.attention_lse_reference(q2, k1, vb),
                        A.attention_lse_reference(q1, k2, tb)) if want_lse
                       else (None, None))
         return ctx1, ctx2, lse1, lse2, (q1, k1, v1, q2, k2, v2, vb, tb)
 
     def bi_attention_bwd(q1, k1, v1, q2, k2, v2, vb, tb, ctx1, ctx2, lse1, lse2,
-                         do1, do2, rate1, rate2, seed, stream0=0):
+                         do1, do2, rate1, rate2, seed, *streams):
         return A.bi_attention_bwd_reference(q1, k1, v1, q2, k2, v2, vb, tb, do1,
-                                            do2, rate1, rate2, seed, stream0)
+                                            do2, rate1, rate2, seed, *streams)
 
     def epilogue_fwd(h, res, weight, bias, rate, seed, row0=0):
         d = h.shape[-1]
@@ -1721,8 +1753,10 @@ def instrumented_entries(rec):
     def save_recorded(*a, **k):
         t0 = time.perf_counter()
         path = save(*a, **k)
-        rec["saves"].append(dict(s=time.perf_counter() - t0,
-                                 bytes=Path(path).stat().st_size, name=Path(path).name))
+        # a model rank above 0 gathers and writes nothing
+        rec["saves"].append(dict(s=time.perf_counter() - t0, name=Path(path).name,
+                                 bytes=Path(path).stat().st_size if Path(path).exists()
+                                 else None))
         return path
 
     def save_dcp_recorded(*a, **k):
@@ -1823,8 +1857,9 @@ def train_entry_path(seed):
     instructions per split, its ``--resume`` from the epoch-0 checkpoint, a
     run with ``--remat --profile_dir``, and ``entries.pretrain.main`` (the
     MRT recipe, 3 Loader workers) on the YTb fixture of phase 10; then
-    phase 14 (``ddp_path``) on the same fixtures.  Returns the launch counts
-    of the 30RS run, of the pretraining run and of phase 14."""
+    phases 14 (``ddp_path``) and 15 (``tp_path``) on the same fixtures.
+    Returns the launch counts of the 30RS run, of the pretraining run and
+    of phases 14 and 15."""
     import numpy as np
     import torch
     from youtube_vln_tpu_torch import lily_base_config
@@ -1967,7 +2002,10 @@ def train_entry_path(seed):
         del engine
         shutil.rmtree(root / "result" / "mrt")
         torch.cuda.empty_cache()
-        launches_ddp = ddp_path(seed, root, recipe, pre_paths, median_step_ms(rec_a))
+        with phase_timer("14 ddp"):
+            launches_ddp = ddp_path(seed, root, recipe, pre_paths, median_step_ms(rec_a))
+        with phase_timer("15 tp"):
+            launches_tp = tp_path(seed, root, common, pre_paths, data_dir)
 
     saves = rec_a["saves"] + rec_b["saves"] + rec_c["saves"] + rec_d["saves"]
     print(json.dumps({
@@ -1999,7 +2037,7 @@ def train_entry_path(seed):
                    (("train", rec_a), ("resume", rec_b), ("remat", rec_c), ("pretrain", rec_d))},
         "first_step_loss": {"train": loss_a, "remat": loss_c}}))
     torch.cuda.empty_cache()
-    return launches_a, launches_d, launches_ddp
+    return launches_a, launches_d, launches_ddp, launches_tp
 
 
 # --------------------------------------------------------------------------- #
@@ -2196,6 +2234,8 @@ def child_entry(run, spec):
     if len(rec["ddp"]) != 1:
         fail(f"{run['name']}: the model was wrapped in DDP {len(rec['ddp'])} times")
     out = entry_record(rec, launches)
+    if run.get("tp"):
+        out["state"] = tp_state(run, rec["engines"][0])
     rec["engines"].clear()
     torch.cuda.empty_cache()
     return out
@@ -2256,9 +2296,6 @@ def child_mrt(run, spec):
     del model, optimizer, step
     torch.cuda.empty_cache()
     return dict(losses=losses, ms_per_step=ms, launches=launches, dcp=saved)
-
-
-CHILD_RUNS = {"entry": child_entry, "mrt": child_mrt}
 
 
 def ddp_child(spec_path) -> int:
@@ -2433,6 +2470,363 @@ def ddp_path(seed, root, recipe, pre_paths, unwrapped_ms):
     return launches
 
 
+# --------------------------------------------------------------------------- #
+# phase 15: tensor parallelism over heads
+# --------------------------------------------------------------------------- #
+TP_MODEL = 2                       # the model axis of the children
+TP_BATCH = 8                       # global batch: two ranks share one card
+TP_LOSS_RTOL = 1e-4                # f32 (1, 2) against one process
+
+
+def head_shard_checks(seed):
+    """Phase 15a: B1-B4 at the 30RS train shapes (96 x 8 heads, bf16 and
+    f32, dropout 0 and 0.1) launched on every shard of a 1 x 2 and a 2 x 2
+    mesh with the head mapping (``stream0`` of the data coordinate,
+    ``head0`` / ``heads_total`` of the model coordinate): outputs, row
+    log-sum-exps and gradients bitwise the slice of the full launch; the
+    identity mapping (``head0`` 0, ``heads_total`` H) bitwise the launch
+    without one and, against its plain twin, the mask of the unmapped
+    streams b * H + h.  B5/B6 at 45,248 x 1024 with the data coordinate's ``row0``,
+    launched once per model rank: bitwise the full launch's rows on both.
+    Returns how many launches were compared."""
+    import torch
+    from youtube_vln_tpu_torch.ops import attention as A
+    from youtube_vln_tpu_torch.ops import epilogue as E
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 15)
+    s_v, bh = L * BOXES, TRAIN_B * TRAIN_NC
+    drop_seed = 0x7E9 + seed
+    n_checked = 0
+    for dtype in (torch.bfloat16, torch.float32):
+        tol = TOL[str(dtype).split(".")[1]]
+        for rate in (0.0, RATE):
+            what = f"{str(dtype).split('.')[1]}, dropout {rate}"
+            # B1 / B3: vision self-attention
+            q, k, v, do = (heads_view(gen, bh, HEADS, s_v, 128, dtype) for _ in range(4))
+            bias = key_bias(gen, bh, s_v)
+            out, lse, _ = A._attention_fwd(q, k, v, bias, rate, drop_seed, True)
+            same_bits(f"B1 identity mapping, {what}", A._attention_fwd(
+                q, k, v, bias, rate, drop_seed, True, 0, 0, HEADS)[:2], (out, lse))
+            grads = A._attention_bwd(q, k, v, bias, out, do, lse, rate, drop_seed)
+            same_bits(f"B3 identity mapping, {what}", A._attention_bwd(
+                q, k, v, bias, out, do, lse, rate, drop_seed, 0, 0, HEADS), grads)
+            if rate and dtype == torch.bfloat16:
+                check(f"B1 identity mapping vs plain (streams b*H + h), {what}", out,
+                      A.attention_reference(q, k, v, bias, rate, drop_seed, 0, 0), tol)
+            for data, model in ((1, TP_MODEL), (2, TP_MODEL)):
+                rows_n, heads_n = bh // data, HEADS // model
+                for d in range(data):
+                    for m in range(model):
+                        rows = slice(d * rows_n, (d + 1) * rows_n)
+                        heads = slice(m * heads_n, (m + 1) * heads_n)
+                        streams = (d * rows_n * HEADS, m * heads_n, HEADS)
+                        qs, ks, vs, dos = (x[rows, heads] for x in (q, k, v, do))
+                        o, ls, _ = A._attention_fwd(qs, ks, vs, bias[rows], rate,
+                                                    drop_seed, True, *streams)
+                        same_bits(f"B1 shard ({d}, {m}) of {data} x {model}, {what}",
+                                  (o, ls), (out[rows, heads], lse[rows, heads]))
+                        g = A._attention_bwd(qs, ks, vs, bias[rows], o, dos, ls, rate,
+                                             drop_seed, *streams)
+                        same_bits(f"B3 shard ({d}, {m}) of {data} x {model}, {what}",
+                                  g, [x[rows, heads] for x in grads])
+                        n_checked += 2
+            del q, k, v, do, bias, out, lse, grads
+
+            # B2 / B4: co-attention 60 <-> 808
+            vis = [heads_view(gen, bh, HEADS, s_v, 128, dtype) for _ in range(3)]
+            txt = [heads_view(gen, bh, HEADS, S_T, 128, dtype) for _ in range(3)]
+            vb, tb = key_bias(gen, bh, s_v), key_bias(gen, bh, S_T)
+            do1 = heads_view(gen, bh, HEADS, S_T, 128, dtype)
+            do2 = heads_view(gen, bh, HEADS, s_v, 128, dtype)
+            *fwd, _ = A._bi_attention_fwd(*vis, *txt, vb, tb, rate, rate, drop_seed, True)
+            same_bits(f"B2 identity mapping, {what}", A._bi_attention_fwd(
+                *vis, *txt, vb, tb, rate, rate, drop_seed, True, 0, 0, HEADS)[:4], fwd)
+            grads = A._bi_attention_bwd(*vis, *txt, vb, tb, *fwd, do1, do2, rate, rate,
+                                        drop_seed)
+            for data, model in ((1, TP_MODEL), (2, TP_MODEL)):
+                rows_n, heads_n = bh // data, HEADS // model
+                for d in range(data):
+                    for m in range(model):
+                        rows = slice(d * rows_n, (d + 1) * rows_n)
+                        heads = slice(m * heads_n, (m + 1) * heads_n)
+                        streams = (d * rows_n * HEADS, m * heads_n, HEADS)
+                        ops = [x[rows, heads] for x in vis + txt]
+                        *f, _ = A._bi_attention_fwd(*ops, vb[rows], tb[rows], rate, rate,
+                                                    drop_seed, True, *streams)
+                        same_bits(f"B2 shard ({d}, {m}) of {data} x {model}, {what}", f,
+                                  [x[rows, heads] for x in fwd])
+                        g = A._bi_attention_bwd(*ops, vb[rows], tb[rows], *f,
+                                                do1[rows, heads], do2[rows, heads], rate,
+                                                rate, drop_seed, *streams)
+                        same_bits(f"B4 shard ({d}, {m}) of {data} x {model}, {what}", g,
+                                  [x[rows, heads] for x in grads])
+                        n_checked += 2
+            del vis, txt, vb, tb, do1, do2, fwd, grads
+            torch.cuda.empty_cache()
+
+    # B5 / B6: rows replicated on the model ranks, row0 of the data coordinate
+    bf16 = torch.bfloat16
+    n, dd = PRE_B * PRE_NC * L * BOXES, 1024
+    hn = n // 2
+    h, res, do = (torch.randn(n, dd, generator=gen, device="cuda").to(bf16)
+                  for _ in range(3))
+    w = 1.0 + 0.1 * torch.randn(dd, generator=gen, device="cuda")
+    b = 0.1 * torch.randn(dd, generator=gen, device="cuda")
+    out, ops = E._epilogue_fwd(h, res, w, b, RATE, drop_seed)
+    grads = E._epilogue_bwd(*ops, do, RATE, drop_seed)
+    for d in range(2):
+        rows = slice(d * hn, (d + 1) * hn)
+        for m in range(TP_MODEL):
+            o, opsr = E._epilogue_fwd(h[rows], res[rows], w, b, RATE, drop_seed, d * hn)
+            same_bits(f"B5 data {d}, model rank {m}", (o,), (out[rows],))
+            g = E._epilogue_bwd(*opsr, do[rows], RATE, drop_seed, d * hn)
+            same_bits(f"B6 dh, dres data {d}, model rank {m}", g[:2],
+                      [x[rows] for x in grads[:2]])
+            n_checked += 2
+    del h, res, do, out, ops, grads
+    torch.cuda.empty_cache()
+    print(f"head shards: {n_checked} launches of B1-B6 on a shard equal to the slice of "
+          f"the full launch, bit for bit")
+    return n_checked
+
+
+def bits_digest(t) -> int:
+    """A digest of the bits of ``t`` (two tensors with one digest are equal
+    bit for bit, up to a collision of the weighted sum)."""
+    import torch
+    x = t.detach().contiguous().view(-1)
+    ints = x.view({2: torch.int16, 4: torch.int32}[x.element_size()]).to(torch.int64)
+    weights = torch.arange(ints.numel(), device=x.device, dtype=torch.int64) % 65521 + 1
+    return int((ints * weights).sum())
+
+
+def tp_state(run, engine):
+    """What a model rank reports of its model after a phase-15 run: the
+    digests of its replicated and of its sharded parameters, and the
+    gathered ``.bin`` of its weights and moments (collective over the model
+    group; rank 0 writes)."""
+    from youtube_vln_tpu_torch.parallel import distributed
+    from youtube_vln_tpu_torch.training import checkpoint as ck
+    params = dict(engine.model.named_parameters())
+    out = {"replicated": {n: bits_digest(p) for n, p in params.items()
+                          if not hasattr(p, "tp_dim")},
+           "sharded": {n: bits_digest(p) for n, p in params.items()
+                       if hasattr(p, "tp_dim")},
+           "mesh": [distributed.data_rank(), distributed.model_rank()]}
+    if run.get("gathered"):
+        out["gathered"] = ck.save_checkpoint(
+            run["out_dir"], run["gathered"], engine.model, engine.cfg,
+            optimizer=engine.optimizer, step=engine.optimizer.step_count,
+            write=distributed.rank() == 0)
+    return out
+
+
+def child_tp_mrt(run, spec):
+    """The MRT recipe through the pretrain entry under ``--mesh_shape 1 2``
+    with the epilogue kernels (a config file that sets
+    ``use_epilogue_kernels``): the launches per micro-step, and a digest of
+    every B5 output, which the model ranks must share bit for bit."""
+    import torch
+    from youtube_vln_tpu_torch.config import LilyConfig
+    from youtube_vln_tpu_torch.entries import pretrain as pretrain_entry
+    from youtube_vln_tpu_torch.ops import epilogue as E
+    launch = E._epilogue_fwd
+    digests = []
+
+    def recorded(*a, **k):
+        out, ops = launch(*a, **k)
+        digests.append(bits_digest(out))
+        return out, ops
+
+    E._epilogue_fwd = recorded
+    try:
+        _, launches, rec = run_entry(pretrain_entry.main, run["argv"])
+    finally:
+        E._epilogue_fwd = launch
+    cfg = LilyConfig.from_json_file(run["config_file"])
+    rank = os.environ["RANK"]
+    check_pretrain_launches(cfg, launches, len(rec["steps"]), f"MRT entry, TP rank {rank}")
+    out = entry_record(rec, launches)
+    out["ln_digests"] = digests
+    out["state"] = tp_state(run, rec["engines"][0])
+    rec["engines"].clear()
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_path(seed, root, common, pre_paths, pre_data_dir):
+    """Phase 15: tensor parallelism over heads.  (a) ``head_shard_checks``;
+    (b) the 30RS train entry at full width under ``--mesh_shape 1 2`` in two
+    gloo children on the one card (global batch 8, ``--remat``): f32 with
+    every dropout 0 against one process on the same batches (1e-4
+    relative), its gathered ``0.bin`` against the one process's in keys and
+    shapes; bf16 with dropout 0.1, the replicated parameters bitwise equal
+    across the ranks and the sharded ones not, its ``.dcp`` loaded in one
+    process equal to the ranks' gathered weights and moments; (c) the MRT
+    pretrain entry under ``--mesh_shape 1 2`` with the epilogue kernels, 2
+    steps: 6 launches of B1-B4 and 24 of B5/B6 per micro-step per rank,
+    every LN output of B5 bitwise equal on the two ranks.  Gloo moves every
+    all-reduce through host memory: the times are not a speed number.
+    Returns the launch counts of (b) and (c), every rank summed."""
+    import torch
+    from youtube_vln_tpu_torch import lily_base_config
+    from youtube_vln_tpu_torch.data.fixtures import build_r2r_fixture
+    from youtube_vln_tpu_torch.entries import train as train_entry
+    from youtube_vln_tpu_torch.models import Lily
+    from youtube_vln_tpu_torch.parallel.train_step import create_train_state
+    from youtube_vln_tpu_torch.training import checkpoint as ck
+    from youtube_vln_tpu_torch.utils.cli import parse_run_config
+
+    n_shards = head_shard_checks(seed)
+    root = Path(root)
+    result = root / "tp_result"
+    r2r = build_r2r_fixture(root / "r2r_tp", k_boxes=BOXES - 1, n_beams=NC, path_len=L,
+                            n_paths=6, seed=seed)
+    recipe = common + ["--data_dir", r2r["data_dir"], "--img_feature", r2r["store_path"],
+                       "--bert_tokenizer", r2r["vocab_path"], "--ranking",
+                       "--shuffle_visual_features", "--batch_size", str(TP_BATCH),
+                       "--remat", "--num_epochs", "1", "--skip_val", "--output_dir",
+                       str(result)]
+    f32 = recipe + ["--compute_dtype", "float32", "--config_file",
+                    str(dropout_free_config(root)), "--save_epochs", "1"]
+    mesh = ["--mesh_shape", "1", str(TP_MODEL)]
+
+    # (b) the one process first, then the two model ranks
+    _, _, rec_one = run_entry(train_entry.main, f32 + ["--save_name", "tp_one"])
+    one = [s["losses"] for s in rec_one["steps"]]
+    one_ms = median_step_ms(rec_one) if len(rec_one["steps"]) > 1 else rec_one["steps"][0]["ms"]
+    rec_one["engines"].clear()
+    torch.cuda.empty_cache()
+    epilogue_cfg = json.loads((REPO / "configs" / "bert_base_6_layer_6_connect.json")
+                              .read_text())
+    epilogue_cfg["use_epilogue_kernels"] = True
+    epilogue_cfg_path = root / "bert_base_6_layer_6_connect_epilogue.json"
+    epilogue_cfg_path.write_text(json.dumps(epilogue_cfg))
+    mrt_argv = common[:]
+    mrt_argv[mrt_argv.index("--config_file") + 1] = str(epilogue_cfg_path)
+    mrt_argv += ["--pre_dataset", "ytb", "--prefix", "merge+", "--masked_vision",
+                 "--masked_language", "--ranking", "--traj_judge", "--batch_size",
+                 str(PRE_B), "--learning_rate", "2e-5", "--num_epochs", "1", "--skip_val",
+                 "--save_epochs", "-1", "--num_workers", "0", "--data_dir", str(pre_data_dir),
+                 "--ytb_feature", pre_paths["store_path"], "--skeleton_path",
+                 pre_paths["skeleton_path"], "--bert_tokenizer", pre_paths["vocab_path"],
+                 "--save_name", "tp_mrt", "--output_dir", str(result)] + mesh
+    c = run_children("tp_gloo", TP_MODEL, {"backend": "gloo", "seed": seed, "runs": [
+        dict(name="TP 30RS f32", kind="entry", per_micro=[2, 1],
+             argv=f32 + mesh + ["--save_name", "tp_f32"]),
+        dict(name="TP 30RS bf16", kind="entry", per_micro=[2, 1], tp=True,
+             gathered="tp_bf16_gathered", out_dir=str(root),
+             argv=recipe + mesh + ["--orbax_checkpoints", "--save_epochs", "1",
+                                   "--save_name", "tp_bf16"]),
+        dict(name="TP MRT", kind="tp_mrt", config_file=str(epilogue_cfg_path),
+             argv=mrt_argv)]}, root)
+
+    # f32 against one process; the ranks' losses are the global batch's
+    for name in ("TP 30RS f32", "TP 30RS bf16", "TP MRT"):
+        per_rank = [r[name]["losses"] for r in c]
+        if any(l != per_rank[0] for l in per_rank):
+            fail(f"{name}: the model ranks' losses differ: {per_rank}")
+    tp_f32 = c[0]["TP 30RS f32"]["losses"]
+    rel = max(abs(g[k] - w[k]) / max(abs(w[k]), 1e-12)
+              for g, w in zip(tp_f32, one) for k in w)
+    print(f"f32 30RS, 1 x {TP_MODEL} against one process: losses {tp_f32} against "
+          f"{one}, max relative difference {rel:.3e}")
+    if len(tp_f32) != len(one) or len(one) != 2 or not rel <= TP_LOSS_RTOL:
+        fail(f"f32 30RS under --mesh_shape 1 {TP_MODEL}: {len(tp_f32)} steps against "
+             f"{len(one)}, relative difference {rel} above {TP_LOSS_RTOL}")
+    one_bin = torch.load(result / "tp_one" / "data" / "0.bin", map_location="cpu",
+                         weights_only=True, mmap=True)
+    tp_bin = torch.load(result / "tp_f32" / "data" / "0.bin", map_location="cpu",
+                        weights_only=True, mmap=True)
+    shapes = [{k: tuple(v.shape) for k, v in b["model_state_dict"].items()}
+              for b in (one_bin, tp_bin)]
+    moments = [{k: tuple(v.shape) for k, v in b["optimizer_state_dict"]["exp_avg"].items()}
+               for b in (one_bin, tp_bin)]
+    if shapes[0] != shapes[1] or moments[0] != moments[1]:
+        fail("the gathered .bin of --mesh_shape 1 2 differs from the one process's in "
+             "keys or shapes")
+    del one_bin, tp_bin
+
+    # bf16 with dropout: replicated parameters equal across the model ranks
+    for name in ("TP 30RS bf16", "TP MRT"):
+        states = [r[name]["state"] for r in c]
+        if [s["mesh"] for s in states] != [[0, m] for m in range(TP_MODEL)]:
+            fail(f"{name}: mesh coordinates {[s['mesh'] for s in states]}")
+        differ = [n for n, d in states[0]["replicated"].items()
+                  if any(s["replicated"][n] != d for s in states[1:])]
+        # a sharded weight matrix differs between the ranks (a zero bias
+        # that no task trains may not)
+        same = [n for n, d in states[0]["sharded"].items() if n.endswith("weight")
+                and any(s["sharded"][n] == d for s in states[1:])]
+        print(f"{name}: {len(states[0]['replicated'])} replicated parameters, "
+              f"{len(differ)} differ across the model ranks; {len(states[0]['sharded'])} "
+              f"sharded, {len(same)} equal")
+        if differ or same or not states[0]["sharded"]:
+            fail(f"{name}: replicated parameters that differ {differ[:3]}, sharded "
+                 f"ones that agree {same[:3]}")
+    digests = [r["TP MRT"]["ln_digests"] for r in c]
+    if len(digests[0]) != c[0]["TP MRT"]["launches"]["epilogue_fwd"] or any(
+            d != digests[0] for d in digests[1:]):
+        fail(f"TP MRT: {len(digests[0])} B5 outputs, equal across the ranks: "
+             f"{[d == digests[0] for d in digests]}")
+
+    # the (1, 2) .dcp resumed in one process: the ranks' gathered state
+    cfg = lily_base_config()
+    _, args = parse_run_config(recipe)
+    loaded = []
+    t0 = time.perf_counter()
+    for path in (result / "tp_bf16" / "data" / "0.dcp", root / "tp_bf16_gathered.bin"):
+        model = Lily(cfg, device="cuda")
+        optimizer, _ = create_train_state(model, args, 1000)
+        _, _, step, _ = ck.load_checkpoint(path, model, optimizer)
+        loaded.append((model, ck.optimizer_state_by_name(model, optimizer), step))
+    dcp_load_s = time.perf_counter() - t0
+    (m_dcp, o_dcp, s_dcp), (m_bin, o_bin, s_bin) = loaded
+    differ = [k for (k, a), b2 in zip(m_dcp.state_dict().items(),
+                                      m_bin.state_dict().values()) if not torch.equal(a, b2)]
+    differ += [f"{k}.{n}" for k in ("exp_avg", "exp_avg_sq") for n in o_bin[k]
+               if not torch.equal(o_dcp[k][n], o_bin[k][n])]
+    if differ or s_dcp != s_bin or o_dcp["step_count"] != o_bin["step_count"]:
+        fail(f"the (1, {TP_MODEL}) .dcp resumed in one process differs from the ranks' "
+             f"gathered state: {differ[:3]}, steps {s_dcp} / {s_bin}")
+    del loaded, m_dcp, m_bin, o_dcp, o_bin
+    shutil.rmtree(result, ignore_errors=True)
+    (root / "tp_bf16_gathered.bin").unlink()
+    torch.cuda.empty_cache()
+
+    launches = sum_launches(*[r[name]["launches"] for r in c
+                              for name in ("TP 30RS f32", "TP 30RS bf16", "TP MRT")])
+    print(json.dumps({
+        "tp": f"phase 15: --mesh_shape 1 {TP_MODEL}, 2 gloo ranks on one card, "
+              f"global batch {TP_BATCH} (30RS) and {PRE_B} (MRT); gloo moves every "
+              f"all-reduce through host memory, so the times are not a speed number",
+        "head_shard_launches_bitwise_equal": n_shards,
+        "f32_losses": tp_f32, "one_process_f32_losses": one, "f32_max_rel_diff": rel,
+        "peak_gib_per_rank": {name: [r[name]["peak_gib"] for r in c]
+                              for name in ("TP 30RS f32", "TP 30RS bf16", "TP MRT")},
+        "one_process_f32_peak_gib": max(s["peak"] for s in rec_one["steps"]) / 2 ** 30,
+        "gloo_not_speed": {
+            "ms_per_step": {name: [r[name]["ms_per_step"] for r in c]
+                            for name in ("TP 30RS f32", "TP 30RS bf16", "TP MRT")},
+            "step_ms": {name: [r[name]["step_ms"] for r in c]
+                        for name in ("TP 30RS f32", "TP 30RS bf16", "TP MRT")},
+            "one_process_f32_ms_per_step": one_ms,
+            "dcp_save_s": [r["TP 30RS bf16"]["saves"][0]["s"] for r in c],
+            "dcp_files_bytes": c[1]["TP 30RS bf16"]["saves"][0]["files"],
+            "dcp_load_one_process_s": dcp_load_s},
+        "bf16_losses": c[0]["TP 30RS bf16"]["losses"],
+        "mrt_losses": c[0]["TP MRT"]["losses"],
+        "mrt_ln_outputs_bitwise_equal": len(digests[0]),
+        "launches_per_rank": {name: [r[name]["launches"] for r in c]
+                              for name in ("TP 30RS f32", "TP 30RS bf16", "TP MRT")},
+        "launches_tp": launches}))
+    return launches
+
+
+# what a child of phase 14 or 15 runs, by kind
+CHILD_RUNS = {"entry": child_entry, "mrt": child_mrt, "tp_mrt": child_tp_mrt}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -2458,17 +2852,24 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
 
-    occupancy = build_kernels()
-
-    eval_rows = kernel_checks(args.seed)
-    edge_checks(args.seed)
-    launches_eval, synthetic_ms = main_path(args.seed)
-    launches_entry = entry_path(args.seed, synthetic_ms)
-    rows = train_kernel_checks(args.seed)
-    launches_train = train_path(args.seed)
-    rows.update(epilogue_kernel_checks(args.seed))
-    launches_pretrain = pretrain_path(args.seed)
-    launches_train_entry, launches_pretrain_entry, launches_ddp = train_entry_path(args.seed)
+    with phase_timer("2 build"):
+        occupancy = build_kernels()
+    with phase_timer("3 forward checks"):
+        eval_rows = kernel_checks(args.seed)
+        edge_checks(args.seed)
+    with phase_timer("4 eval path"):
+        launches_eval, synthetic_ms = main_path(args.seed)
+    with phase_timer("4b test entry"):
+        launches_entry = entry_path(args.seed, synthetic_ms)
+    with phase_timer("5-8 train checks and path"):
+        rows = train_kernel_checks(args.seed)
+        launches_train = train_path(args.seed)
+    with phase_timer("9-12 epilogue checks and pretraining path"):
+        rows.update(epilogue_kernel_checks(args.seed))
+        launches_pretrain = pretrain_path(args.seed)
+    with phase_timer("13-15 training entries, ddp, tp"):
+        (launches_train_entry, launches_pretrain_entry, launches_ddp,
+         launches_tp) = train_entry_path(args.seed)
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     for name, row in rows.items():
         row["launches_eval"] = launches_eval[name]
@@ -2478,13 +2879,15 @@ def main() -> int:
         row["launches_train_entry"] = launches_train_entry[name]
         row["launches_pretrain_entry"] = launches_pretrain_entry[name]
         row["launches_ddp"] = launches_ddp[name]
+        row["launches_tp"] = launches_tp[name]
         row["launches"] = (launches_eval[name] + launches_train[name]
                            + launches_pretrain[name] + launches_entry[name]
                            + launches_train_entry[name] + launches_pretrain_entry[name]
-                           + launches_ddp[name])
+                           + launches_ddp[name] + launches_tp[name])
         if name in eval_rows:
             row["eval_shape"] = {k: eval_rows[name][k] for k in keys}
         row.update(occupancy.get(name, {}))
+    print(json.dumps({"phase_s": PHASE_S}))
     print(smi.stdout.strip().splitlines()[0])
     print(json.dumps({"kernels": list(rows.values())}))
     print(json.dumps({"ok": True, "device": {

@@ -3,8 +3,9 @@ utils/cli.py``, ``entry.py``, ``misc.py``) against the JAX package's: the
 same options with the same defaults, types, choices and actions (this pins
 the flag set without the reference repository), apart from ``--device``;
 the TPU-only flag not ported yet refused at any non-default value, a
-``model`` mesh axis above 1 refused, and ``--remat`` / ``--profile_dir`` /
-``--mesh_axes`` / ``--orbax_checkpoints`` parsed; ``args_to_run_config`` and
+``data`` x ``model`` mesh parsed and refused against a process group of
+another size, and ``--remat`` / ``--profile_dir`` / ``--mesh_axes`` /
+``--orbax_checkpoints`` parsed; ``args_to_run_config`` and
 ``build_model_config`` equal field for field; ``increment_path``,
 ``dump_config`` and ``save_code_snapshot`` write the same folders and
 files."""
@@ -59,18 +60,18 @@ FLAGS = {"mesh_shape": ["--mesh_shape", "2", "4"],
          "compilation_cache_dir": ["--compilation_cache_dir", "cache"],
          "orbax_checkpoints": ["--orbax_checkpoints"]}
 PORTED = {"remat": True, "profile_dir": "traces", "mesh_axes": ("data",),
-          "orbax_checkpoints": True}
-# FLAGS["mesh_shape"] gives the model axis 4: tensor parallelism, refused
-REFUSED_VALUES = {"mesh_shape"}
+          "orbax_checkpoints": True, "mesh_shape": (2, 4)}
+REFUSED_VALUES = set()
 
 
 @pytest.mark.parametrize("flag", sorted(FLAGS))
 def test_tpu_only_flags_refused_unless_default(flag):
     """The JAX package's TPU-only flags: those not ported yet are refused at
-    any value but their default, and a mesh with a model axis above 1 is
-    refused, each naming the ROADMAP item that ports it; the ported ones
-    (--remat, --profile_dir, --mesh_axes, --orbax_checkpoints) parse into
-    RunConfig as they do in the JAX package."""
+    any value but their default, naming the ROADMAP item that ports them;
+    the ported ones (--remat, --profile_dir, --mesh_axes,
+    --orbax_checkpoints, and --mesh_shape with a model axis above 1,
+    tensor parallelism) parse into RunConfig as they do in the JAX package;
+    a mesh is refused against a process group of another size."""
     pcli.parse_run_config([])     # every default is accepted
     assert set(pcli.TPU_ONLY) == set(FLAGS) - set(PORTED) - REFUSED_VALUES
     if flag in PORTED:
@@ -78,6 +79,11 @@ def test_tpu_only_flags_refused_unless_default(flag):
         assert getattr(args, flag) == PORTED[flag]
         _, jargs = jcli.parse_run_config(FLAGS[flag])
         assert getattr(jargs, flag) == PORTED[flag]
+        if flag == "mesh_shape":
+            assert pmesh.mesh_extents(args.mesh_shape, args.mesh_axes, 8) == {
+                "data": 2, "model": 4}
+            with pytest.raises(ValueError, match=r"\(\(2, 4\), 4\).*process group"):
+                pmesh.mesh_extents(args.mesh_shape, args.mesh_axes, 4)
         return
     with pytest.raises(ValueError, match=rf"--{flag} .*ROADMAP.md Queue A item A\d+"):
         pcli.parse_run_config(FLAGS[flag])
@@ -107,16 +113,23 @@ def test_data_axis_mesh_flags_accepted(argv, extents):
         pmesh.mesh_extents(args.mesh_shape, args.mesh_axes, extents["data"] + 1)
 
 
-@pytest.mark.parametrize("argv,match", [
-    (["--mesh_shape", "1", "2"], "model.*A10"),
-    (["--mesh_shape", "2", "2", "--mesh_axes", "model", "data"], "model.*A10"),
-    (["--mesh_shape", "2", "--mesh_axes", "model"], "no 'data' axis"),
-    (["--mesh_shape", "2", "1", "--mesh_axes", "data", "pipe"], "unknown axis"),
-    (["--mesh_shape", "2", "1", "--mesh_axes", "data"], "distinct"),
+@pytest.mark.parametrize("argv,world,match", [
+    (["--mesh_shape", "1", "2"], 1, r"\(\(1, 2\), 1\).*process group holds 1"),
+    (["--mesh_shape", "2", "2", "--mesh_axes", "model", "data"], 8,
+     r"\(\(2, 2\), 8\)"),
+    (["--mesh_shape", "2", "--mesh_axes", "model"], None, "no 'data' axis"),
+    (["--mesh_shape", "2", "1", "--mesh_axes", "data", "pipe"], None, "unknown axis"),
+    (["--mesh_shape", "2", "1", "--mesh_axes", "data"], None, "distinct"),
 ], ids=range(5))
-def test_mesh_beyond_the_data_axis_refused(argv, match):
+def test_mesh_beyond_the_data_axis_refused(argv, world, match):
+    """A mesh that names no ``data`` axis, an unknown axis or too few names
+    is refused as it parses; a data x model mesh parses (tensor
+    parallelism) and is refused against a process group of another size,
+    with the JAX ``make_mesh`` wording, (shape, world)."""
     with pytest.raises(ValueError, match=match):
-        pcli.parse_run_config(argv)
+        _, args = pcli.parse_run_config(argv)
+        assert world is not None
+        pmesh.mesh_extents(args.mesh_shape, args.mesh_axes, world)
 
 
 def test_default_mesh_is_the_world_on_the_data_axis():

@@ -385,32 +385,32 @@ def _plain_launchers(monkeypatch):
     def bias_or_zeros(bias, b, s):
         return torch.zeros(b, s) if bias is None else bias
 
-    def attention_fwd(q, k, v, bias, rate, seed, want_lse, stream0=0):
+    def attention_fwd(q, k, v, bias, rate, seed, want_lse, *streams):
         bias = bias_or_zeros(bias, q.shape[0], k.shape[2])
         lse = A.attention_lse_reference(q, k, bias) if want_lse else None
-        return (A.attention_reference(q, k, v, bias, rate, seed, 0, stream0),
+        return (A.attention_reference(q, k, v, bias, rate, seed, 0, *streams),
                 lse, (q, k, v, bias))
 
-    def attention_bwd(q, k, v, bias, o, do, lse, rate, seed, stream0=0):
+    def attention_bwd(q, k, v, bias, o, do, lse, rate, seed, *streams):
         return A.attention_bwd_reference(q, k, v, bias, do, rate, seed, 0,
-                                         stream0)
+                                         *streams)
 
     def bi_attention_fwd(q1, k1, v1, q2, k2, v2, v_bias, t_bias, rate1, rate2,
-                         seed, want_lse, stream0=0):
+                         seed, want_lse, *streams):
         vb = bias_or_zeros(v_bias, q1.shape[0], k1.shape[2])
         tb = bias_or_zeros(t_bias, q1.shape[0], k2.shape[2])
         ctx1, ctx2 = A.bi_attention_reference(q1, k1, v1, q2, k2, v2, vb, tb,
-                                              rate1, rate2, seed, stream0)
+                                              rate1, rate2, seed, *streams)
         lse1, lse2 = ((A.attention_lse_reference(q2, k1, vb),
                        A.attention_lse_reference(q1, k2, tb)) if want_lse
                       else (None, None))
         return ctx1, ctx2, lse1, lse2, (q1, k1, v1, q2, k2, v2, vb, tb)
 
     def bi_attention_bwd(q1, k1, v1, q2, k2, v2, vb, tb, ctx1, ctx2, lse1,
-                         lse2, do1, do2, rate1, rate2, seed, stream0=0):
+                         lse2, do1, do2, rate1, rate2, seed, *streams):
         return A.bi_attention_bwd_reference(q1, k1, v1, q2, k2, v2, vb, tb,
                                             do1, do2, rate1, rate2, seed,
-                                            stream0)
+                                            *streams)
 
     monkeypatch.setattr(A, "_on_cpu", lambda *t: False)
     for name, fn in (("_attention_fwd", attention_fwd),

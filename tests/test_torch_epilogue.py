@@ -185,12 +185,12 @@ def test_function_runs_the_plain_versions_on_the_cpu():
 
 def test_epilogue_struct_mirrors_the_c_layout():
     """struct Epilogue in csrc/epilogue.cu: 12 pointers, 3 ints, then
-    struct vln_philox::Dropout (28 bytes), which ends on the pointers'
+    struct vln_philox::Dropout (36 bytes), which ends on the pointers'
     alignment."""
     assert E._Epilogue.n_rows.offset == 12 * 8
     assert E._Epilogue.n_blocks.offset == 12 * 8 + 8
     assert E._Epilogue.dropout.offset == 12 * 8 + 12
-    assert ctypes.sizeof(E._Epilogue) == 12 * 8 + 12 + 28
+    assert ctypes.sizeof(E._Epilogue) == 12 * 8 + 12 + 36
 
 
 # --------------------------------------------------------------------------- #

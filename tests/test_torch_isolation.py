@@ -22,7 +22,7 @@ leaked = sorted(m for m in sys.modules
 assert not leaked, leaked
 for module in ("device", "ops.philox", "ops.epilogue", "ops.masking",
                "training.losses", "training.optimization", "parallel.train_step",
-               "parallel.distributed", "parallel.mesh",
+               "parallel.distributed", "parallel.mesh", "parallel.tensor",
                "data.store", "data.features_reader", "data.tokenizer",
                "data.sampling", "data.instructions", "data.datasets",
                "data.loader", "data.fixtures", "data.nav_graph",

@@ -15,6 +15,7 @@ Reference behavior mirrored:
 from __future__ import annotations
 
 import json
+import os
 import random as _random
 import re
 from itertools import groupby
@@ -32,8 +33,13 @@ def load_json(path: PathLike):
 
 
 def save_json(data, path: PathLike):
-    with open(path, "w") as f:
+    """Writes ``path`` whole or not at all (a sibling temporary file, then
+    a rename), so that processes reading it while another writes it, as
+    the ranks of one job do with a tokenized cache, never see a part."""
+    tmp = f"{path}.{os.getpid()}.tmp"
+    with open(tmp, "w") as f:
         json.dump(data, f, indent=2)
+    os.replace(tmp, path)
 
 
 # --------------------------------------------------------------------------- #

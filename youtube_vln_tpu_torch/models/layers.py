@@ -32,6 +32,19 @@ means eval), keeps the JAX package's two semantics:
     ``models/layers.py:78-94``: uint8 draws, keep probability quantised
     to thresh / 256 with thresh = round(keep * 256), kept values scaled by
     256 / thresh, zeros at thresh 0.
+
+Tensor parallelism (``parallel/tensor.py``, a ``ModelShard`` handed to each
+layer): the attention projections and the FFN input are column-parallel
+(local heads and local features, their input through ``copy_to_model``),
+the attention output and the FFN output row-parallel (``reduce_from_model``
+before the bias, which is replicated), as the JAX package's
+``_param_spec`` shards them.  A sharded weight carries ``tp_dim``, the dim
+of the full tensor it is a shard of.  Every model rank of a data
+coordinate draws the same bits at the replicated dropout sites
+(``DropoutRng`` keys on the data rank), and the one head-sharded site of
+the XLA path, the text self-attention's probabilities, draws the bits of
+every head and keeps its own, so the mask is the one process's and the
+generator advances alike on every model rank.
 """
 from __future__ import annotations
 
@@ -45,6 +58,7 @@ from ..ops import epilogue
 from ..ops.attention import (attention_reference, attention_scores,
                              fused_attention, use_kernel_for)
 from ..ops.philox import MASK64, site_seed
+from ..parallel.tensor import ModelShard, copy_to_model, reduce_from_model
 
 LN_EPS = 1e-12
 
@@ -63,12 +77,14 @@ class DropoutRng:
     from one generator on ``device`` seeded with ``site_seed(seed, 0)``.
 
     Under data parallelism every rank takes the same step seed and
-    ``rank`` is its place in the process group.  A kernel site then draws
-    its rows of the global batch's mask: the rank's call starts at global
-    stream or row ``offset(rows)`` = rank * rows (equal shards, as the
-    JAX package's batch-sharded row ids).  The generator of the other
+    ``rank`` is its data coordinate: its place on the ``data`` axis, which
+    the model ranks that hold the same rows share.  A kernel site then
+    draws its rows of the global batch's mask: the rank's call starts at
+    global stream or row ``offset(rows)`` = rank * rows (equal shards, as
+    the JAX package's batch-sharded row ids).  The generator of the other
     sites is seeded from ``site_seed(site_seed(seed, 0), rank)`` on a
-    rank above 0, so ranks draw independent bits there."""
+    rank above 0, so data ranks draw independent bits there and model
+    ranks the same."""
 
     def __init__(self, seed: int, device, rank: int = 0):
         self.seed = seed & MASK64
@@ -90,16 +106,24 @@ class DropoutRng:
         return self.rank * rows
 
 
-def dropout(x, rate: float, rng):
+def dropout(x, rate: float, rng, heads=None):
     """The JAX package's XLA-path dropout (``layers.py:78-94``); identity
-    when ``rng`` is None (eval) or the rate is 0."""
+    when ``rng`` is None (eval) or the rate is 0.  ``heads`` = (head0,
+    heads_total) marks x [B, H_local, ...] as heads [head0, head0 +
+    H_local) of heads_total: the bits of every head are drawn, and these
+    heads' kept."""
     if rng is None or rate == 0.0:
         return x
     thresh = min(round((1.0 - rate) * 256), 255)
     if thresh == 0:
         return torch.zeros_like(x)
-    bits = torch.randint(0, 256, x.shape, dtype=torch.uint8, device=x.device,
+    shape = x.shape
+    if heads is not None:
+        shape = (x.shape[0], heads[1]) + tuple(x.shape[2:])
+    bits = torch.randint(0, 256, shape, dtype=torch.uint8, device=x.device,
                          generator=rng.generator)
+    if heads is not None:
+        bits = bits[:, heads[0]:heads[0] + x.shape[1]]
     return torch.where(bits < thresh, x * (256.0 / thresh), 0.0).to(x.dtype)
 
 
@@ -121,12 +145,13 @@ def dropout_add_ln(h, res, ln: "LayerNorm", rate: float, rng, cfg):
     return ln(dropout(h, rate, rng) + res)
 
 
-def attention_core(q, k, v, key_bias, rate: float = 0.0, rng=None):
+def attention_core(q, k, v, key_bias, rate: float = 0.0, rng=None, heads=None):
     """The JAX ``attention_core``: f32 scores and softmax, XLA-path dropout
-    on the probabilities, which are cast to v's dtype before P v.  Without
-    dropout it is ``attention_reference``, op for op."""
+    on the probabilities (``heads``: see ``dropout``), which are cast to v's
+    dtype before P v.  Without dropout it is ``attention_reference``, op for
+    op."""
     probs = dropout(torch.softmax(attention_scores(q, k, key_bias), dim=-1),
-                    rate, rng)
+                    rate, rng, heads)
     return torch.matmul(probs.to(v.dtype), v)
 
 
@@ -143,6 +168,35 @@ class Linear(nn.Module):
     def forward(self, x):
         b = None if self.bias is None else self.bias.to(x.dtype)
         return F.linear(x, self.weight.to(x.dtype), b)
+
+
+def column_linear(d_in: int, d_out: int, shard: ModelShard, device=None
+                  ) -> Linear:
+    """A column-parallel ``Linear``: this rank's ``shard.local(d_out)``
+    output features (weight and bias); its input goes through
+    ``copy_to_model`` at the caller, once for all the layers that read it."""
+    lin = Linear(d_in, shard.local(d_out), device=device)
+    if shard.divides(d_out):
+        lin.weight.tp_dim = lin.bias.tp_dim = 0
+    return lin
+
+
+class RowLinear(Linear):
+    """A row-parallel ``Linear``: this rank's ``shard.local(d_in)`` input
+    features; the partial products are summed over the model group
+    (``reduce_from_model``) before the replicated bias."""
+
+    def __init__(self, d_in: int, d_out: int, shard: ModelShard, device=None):
+        super().__init__(shard.local(d_in), d_out, device=device)
+        self.shard = shard if shard.divides(d_in) else ModelShard()
+        if self.shard.world > 1:
+            self.weight.tp_dim = 1
+
+    def forward(self, x):
+        if self.shard.world == 1:
+            return super().forward(x)
+        y = reduce_from_model(F.linear(x, self.weight.to(x.dtype)), self.shard)
+        return y + self.bias.to(x.dtype)
 
 
 class LayerNorm(nn.Module):
@@ -177,45 +231,54 @@ class SelfAttentionHeads(nn.Module):
     """Query/key/value projections and the attention itself (the
     reference's ``BertSelfAttention``).  Where ``use_kernel_for`` selects
     a kernel site, kernel B1 runs (``cfg.use_attention_kernels``) or its
-    plain version, as ``select_attention_fn`` does."""
+    plain version, as ``select_attention_fn`` does.  Under a model axis
+    the projections are column-parallel: this rank's heads [head0, head0 +
+    local) of ``num_heads``, whose context it returns."""
 
     def __init__(self, hidden: int, num_heads: int, cfg, dropout_rate: float,
-                 device=None):
+                 device=None, shard: ModelShard = ModelShard()):
         super().__init__()
         self.num_heads = num_heads
+        self.local_heads, self.head0 = shard.heads(num_heads, hidden)
+        self.shard = shard
         self.cfg = cfg
         self.dropout_rate = dropout_rate
-        self.query = Linear(hidden, hidden, device=device)
-        self.key = Linear(hidden, hidden, device=device)
-        self.value = Linear(hidden, hidden, device=device)
+        self.query = column_linear(hidden, hidden, shard, device=device)
+        self.key = column_linear(hidden, hidden, shard, device=device)
+        self.value = column_linear(hidden, hidden, shard, device=device)
 
     def forward(self, x, key_bias, rng=None):
-        q = split_heads(self.query(x), self.num_heads)
-        k = split_heads(self.key(x), self.num_heads)
-        v = split_heads(self.value(x), self.num_heads)
+        if self.local_heads < self.num_heads:
+            x = copy_to_model(x, self.shard)
+        q = split_heads(self.query(x), self.local_heads)
+        k = split_heads(self.key(x), self.local_heads)
+        v = split_heads(self.value(x), self.local_heads)
         rate = 0.0 if rng is None else self.dropout_rate
         if use_kernel_for(q.shape[2], k.shape[2], q.shape[3]):
             seed, stream0 = ((0, 0) if rng is None else
-                             (rng.kernel_seed(), rng.offset(q.shape[0] * q.shape[1])))
+                             (rng.kernel_seed(), rng.offset(q.shape[0] * self.num_heads)))
             attend = (fused_attention if self.cfg.use_attention_kernels
                       else attention_reference)
             ctx = attend(q, k, v, key_bias, dropout_rate=rate, seed=seed,
-                         stream0=stream0)
+                         stream0=stream0, head0=self.head0,
+                         heads_total=self.num_heads)
         else:
-            ctx = attention_core(q, k, v, key_bias, rate, rng)
+            ctx = attention_core(q, k, v, key_bias, rate, rng,
+                                 (self.head0, self.num_heads))
         return merge_heads(ctx)
 
 
 class AddNorm(nn.Module):
     """LayerNorm(dropout(dense(h)) + residual): the reference's
-    ``BertSelfOutput`` and ``BertOutput`` (JAX ``dropout_add_ln``)."""
+    ``BertSelfOutput`` and ``BertOutput`` (JAX ``dropout_add_ln``), its
+    dense row-parallel under a model axis."""
 
     def __init__(self, d_in: int, d_out: int, dropout_rate: float, cfg,
-                 device=None):
+                 device=None, shard: ModelShard = ModelShard()):
         super().__init__()
         self.cfg = cfg
         self.dropout_rate = dropout_rate
-        self.dense = Linear(d_in, d_out, device=device)
+        self.dense = RowLinear(d_in, d_out, shard, device=device)
         self.LayerNorm = LayerNorm(d_out, device=device)
 
     def forward(self, h, residual, rng=None):
@@ -224,27 +287,31 @@ class AddNorm(nn.Module):
 
 
 class Intermediate(nn.Module):
-    """act(dense(x)): the reference's ``BertIntermediate``."""
+    """act(dense(x)): the reference's ``BertIntermediate``, column-parallel
+    under a model axis (this rank's features)."""
 
-    def __init__(self, d_in: int, d_out: int, act: str, device=None):
+    def __init__(self, d_in: int, d_out: int, act: str, device=None,
+                 shard: ModelShard = ModelShard()):
         super().__init__()
-        self.dense = Linear(d_in, d_out, device=device)
+        self.shard = shard if shard.divides(d_out) else ModelShard()
+        self.dense = column_linear(d_in, d_out, shard, device=device)
         self.act = ACT2FN[act]
 
     def forward(self, x):
-        return self.act(self.dense(x))
+        return self.act(self.dense(copy_to_model(x, self.shard)))
 
 
 class SelfAttention(nn.Module):
     """BertAttention: self-attention -> projection -> add & norm."""
 
     def __init__(self, hidden: int, num_heads: int, cfg, attn_dropout: float,
-                 hidden_dropout: float, device=None):
+                 hidden_dropout: float, device=None,
+                 shard: ModelShard = ModelShard()):
         super().__init__()
         self.self = SelfAttentionHeads(hidden, num_heads, cfg, attn_dropout,
-                                       device=device)
+                                       device=device, shard=shard)
         self.output = AddNorm(hidden, hidden, hidden_dropout, cfg,
-                              device=device)
+                              device=device, shard=shard)
 
     def forward(self, x, key_bias, rng=None):
         return self.output(self.self(x, key_bias, rng), x, rng)
@@ -260,13 +327,16 @@ class TransformerLayer(nn.Module):
     dropout rates are the stream's (attention, hidden)."""
 
     def __init__(self, hidden: int, inter: int, num_heads: int, act: str, cfg,
-                 attn_dropout: float, hidden_dropout: float, device=None):
+                 attn_dropout: float, hidden_dropout: float, device=None,
+                 shard: ModelShard = ModelShard()):
         super().__init__()
         self.attention = SelfAttention(hidden, num_heads, cfg, attn_dropout,
-                                       hidden_dropout, device=device)
-        self.intermediate = Intermediate(hidden, inter, act, device=device)
+                                       hidden_dropout, device=device,
+                                       shard=shard)
+        self.intermediate = Intermediate(hidden, inter, act, device=device,
+                                         shard=shard)
         self.output = AddNorm(inter, hidden, hidden_dropout, cfg,
-                              device=device)
+                              device=device, shard=shard)
 
     def forward(self, x, key_bias, rng=None):
         return ffn(self.attention(x, key_bias, rng), self.intermediate,

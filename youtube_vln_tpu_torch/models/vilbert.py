@@ -17,6 +17,17 @@ train mode ``Lily.forward`` takes a 64-bit ``seed`` and applies the JAX
 package's dropout at the same sites and rates (``models/layers.py``);
 ``cfg.remat`` recomputes each encoder block in the backward
 (``Encoder._block``).
+
+Under tensor parallelism (``Lily(..., shard=ModelShard(m, M, group))``)
+each process holds its shard of the weights by the JAX package's
+``_param_spec`` rules (``parallel/mesh.py:param_spec``): the attention,
+FFN and co-attention projections column-parallel and the attention and
+FFN outputs row-parallel (``models/layers.py``); the co-attention contexts
+gathered before the replicated ``biOutput.dense1`` / ``dense2``; the word
+embedding, and the MLM decoder tied to it, sharded on the vocabulary
+(masked lookups summed over the model group, logits gathered before the
+replicated bias).  Everything else is replicated, and so is any tensor
+whose dim the model axis does not divide (the vocabulary of 30,522 at 4).
 """
 from __future__ import annotations
 
@@ -30,9 +41,11 @@ from torch.utils.checkpoint import checkpoint
 from ..config import LilyConfig
 from ..ops.attention import (bi_attention_reference, fused_bi_attention,
                              use_kernel_for)
+from ..parallel.tensor import (ModelShard, copy_to_model, gather_from_model,
+                               reduce_from_model, shard_tensor)
 from .layers import (ACT2FN, AddNorm, DropoutRng, Intermediate, LayerNorm,
-                     Linear, TransformerLayer, attention_core, dropout,
-                     dropout_add_ln, ffn, merge_heads, split_heads)
+                     Linear, TransformerLayer, attention_core, column_linear,
+                     dropout, dropout_add_ln, ffn, merge_heads, split_heads)
 
 
 def compute_dtype(cfg: LilyConfig) -> torch.dtype:
@@ -47,15 +60,52 @@ def key_bias(mask) -> torch.Tensor:
 # --------------------------------------------------------------------------- #
 # embeddings
 # --------------------------------------------------------------------------- #
+def _sync_over_model(*tables: nn.Embedding) -> None:
+    """Marks the replicated weights among ``tables`` ``tp_sync``: their
+    gradients are averaged over the model group after the backward
+    (``parallel/tensor.py:average_over_model``)."""
+    for t in tables:
+        if not hasattr(t.weight, "tp_dim"):
+            t.weight.tp_sync = True
+
+
+class VocabEmbedding(nn.Embedding):
+    """The word embedding, sharded on the vocabulary under a model axis that
+    divides it: this rank holds rows [rank * V/M, (rank + 1) * V/M), looks
+    up the ids that fall there, zeroes the others and sums the ranks'
+    lookups (``reduce_from_model``; x + 0 is exact)."""
+
+    def __init__(self, vocab: int, d: int, shard: ModelShard, device=None):
+        shard = shard if shard.divides(vocab) else ModelShard()
+        super().__init__(shard.local(vocab), d, device=device)
+        self.shard = shard
+        self.row0 = self.shard.rank * self.num_embeddings
+        if self.shard.world > 1:
+            self.weight.tp_dim = 0
+
+    def forward(self, ids):
+        if self.shard.world == 1:
+            return super().forward(ids)
+        local = ids - self.row0
+        inside = (local >= 0) & (local < self.num_embeddings)
+        emb = F.embedding(torch.where(inside, local, 0), self.weight)
+        return reduce_from_model(emb * inside[..., None].to(emb.dtype),
+                                 self.shard)
+
+
 class TextEmbeddings(nn.Module):
-    def __init__(self, cfg: LilyConfig, device=None):
+    def __init__(self, cfg: LilyConfig, device=None,
+                 shard: ModelShard = ModelShard()):
         super().__init__()
         h = cfg.hidden_size
-        self.word_embeddings = nn.Embedding(cfg.vocab_size, h, device=device)
+        self.word_embeddings = VocabEmbedding(cfg.vocab_size, h, shard,
+                                              device=device)
         self.position_embeddings = nn.Embedding(cfg.max_position_embeddings, h,
                                                 device=device)
         self.token_type_embeddings = nn.Embedding(cfg.type_vocab_size, h,
                                                   device=device)
+        _sync_over_model(self.word_embeddings, self.position_embeddings,
+                         self.token_type_embeddings)
         self.LayerNorm = LayerNorm(h, device=device)
         self.dropout_rate = cfg.hidden_dropout_prob
 
@@ -78,6 +128,7 @@ class VisionEmbeddings(nn.Module):
         self.image_orientation_embeddings = Linear(4, h, device=device)
         self.image_next_orientation_embeddings = Linear(2, h, device=device)
         self.image_sequence_embeddings = nn.Embedding(32, h, device=device)
+        _sync_over_model(self.image_sequence_embeddings)
         self.LayerNorm = LayerNorm(h, device=device)
         # the JAX package uses the text rate here (vilbert.py:150)
         self.dropout_rate = cfg.hidden_dropout_prob
@@ -97,19 +148,24 @@ class VisionEmbeddings(nn.Module):
 # --------------------------------------------------------------------------- #
 class BiAttention(nn.Module):
     """Bi-directional cross attention (reference vilbert.py:552-618).
-    Stream 1 is vision, stream 2 text."""
+    Stream 1 is vision, stream 2 text.  Under a model axis the projections
+    are column-parallel (this rank's heads) and the contexts are gathered
+    whole for the replicated ``BiOutput``."""
 
-    def __init__(self, cfg: LilyConfig, device=None):
+    def __init__(self, cfg: LilyConfig, device=None,
+                 shard: ModelShard = ModelShard()):
         super().__init__()
         self.cfg = cfg
         bi = cfg.bi_hidden_size
+        self.heads, self.head0 = shard.heads(cfg.bi_num_attention_heads, bi)
+        self.shard = shard if shard.divides(bi) else ModelShard()
         for name, d_in in (("query1", cfg.v_hidden_size),
                            ("key1", cfg.v_hidden_size),
                            ("value1", cfg.v_hidden_size),
                            ("query2", cfg.hidden_size),
                            ("key2", cfg.hidden_size),
                            ("value2", cfg.hidden_size)):
-            setattr(self, name, Linear(d_in, bi, device=device))
+            setattr(self, name, column_linear(d_in, bi, shard, device=device))
 
     def forward(self, v_x, v_bias, t_x, t_bias, rng=None):
         """Returns (text-side context [B, S_t, bi], vision-side context
@@ -117,7 +173,8 @@ class BiAttention(nn.Module):
         ``v_attention_probs_dropout_prob``, vision -> text
         ``attention_probs_dropout_prob`` (JAX vilbert.py:180-181, 186-192)."""
         cfg = self.cfg
-        heads = cfg.bi_num_attention_heads
+        heads, total = self.heads, cfg.bi_num_attention_heads
+        v_x, t_x = copy_to_model(v_x, self.shard), copy_to_model(t_x, self.shard)
         q1 = split_heads(self.query1(v_x), heads)
         k1 = split_heads(self.key1(v_x), heads)
         v1 = split_heads(self.value1(v_x), heads)
@@ -130,16 +187,19 @@ class BiAttention(nn.Module):
         if use_kernel_for(q2.shape[2], k1.shape[2], q1.shape[3]):
             # both directions in ONE kernel launch (or its plain version)
             seed, stream0 = ((0, 0) if rng is None else
-                             (rng.kernel_seed(), rng.offset(q1.shape[0] * heads)))
+                             (rng.kernel_seed(), rng.offset(q1.shape[0] * total)))
             attend = (fused_bi_attention if cfg.use_attention_kernels
                       else bi_attention_reference)
             ctx1, ctx2 = attend(q1, k1, v1, q2, k2, v2, v_bias, t_bias,
                                 rate1=rate1, rate2=rate2, seed=seed,
-                                stream0=stream0)
+                                stream0=stream0, head0=self.head0,
+                                heads_total=total)
         else:
-            ctx1 = attention_core(q2, k1, v1, v_bias, rate1, rng)  # text -> vision
-            ctx2 = attention_core(q1, k2, v2, t_bias, rate2, rng)  # vision -> text
-        return merge_heads(ctx1), merge_heads(ctx2)
+            ours = (self.head0, total)
+            ctx1 = attention_core(q2, k1, v1, v_bias, rate1, rng, ours)  # text -> vision
+            ctx2 = attention_core(q1, k2, v2, t_bias, rate2, rng, ours)  # vision -> text
+        return (gather_from_model(merge_heads(ctx1), self.shard),
+                gather_from_model(merge_heads(ctx2), self.shard))
 
 
 class BiOutput(nn.Module):
@@ -165,20 +225,25 @@ class BiOutput(nn.Module):
 class ConnectionLayer(nn.Module):
     """BertConnectionLayer (reference vilbert.py:652-679)."""
 
-    def __init__(self, cfg: LilyConfig, device=None):
+    def __init__(self, cfg: LilyConfig, device=None,
+                 shard: ModelShard = ModelShard()):
         super().__init__()
-        self.biattention = BiAttention(cfg, device=device)
+        self.biattention = BiAttention(cfg, device=device, shard=shard)
         self.biOutput = BiOutput(cfg, device=device)
         self.v_intermediate = Intermediate(cfg.v_hidden_size,
                                            cfg.v_intermediate_size,
-                                           cfg.v_hidden_act, device=device)
+                                           cfg.v_hidden_act, device=device,
+                                           shard=shard)
         self.v_output = AddNorm(cfg.v_intermediate_size, cfg.v_hidden_size,
-                                cfg.v_hidden_dropout_prob, cfg, device=device)
+                                cfg.v_hidden_dropout_prob, cfg, device=device,
+                                shard=shard)
         self.t_intermediate = Intermediate(cfg.hidden_size,
                                            cfg.intermediate_size,
-                                           cfg.hidden_act, device=device)
+                                           cfg.hidden_act, device=device,
+                                           shard=shard)
         self.t_output = AddNorm(cfg.intermediate_size, cfg.hidden_size,
-                                cfg.hidden_dropout_prob, cfg, device=device)
+                                cfg.hidden_dropout_prob, cfg, device=device,
+                                shard=shard)
 
     def forward(self, v_x, v_bias, t_x, t_bias, rng=None):
         ctx_t, ctx_v = self.biattention(v_x, v_bias, t_x, t_bias, rng)
@@ -195,23 +260,26 @@ class Encoder(nn.Module):
     (v_biattention_id, t_biattention_id) schedule (reference
     vilbert.py:712-818)."""
 
-    def __init__(self, cfg: LilyConfig, device=None):
+    def __init__(self, cfg: LilyConfig, device=None,
+                 shard: ModelShard = ModelShard()):
         super().__init__()
         self.cfg = cfg
         self.layer = nn.ModuleList(
             TransformerLayer(cfg.hidden_size, cfg.intermediate_size,
                              cfg.num_attention_heads, cfg.hidden_act, cfg,
                              cfg.attention_probs_dropout_prob,
-                             cfg.hidden_dropout_prob, device=device)
+                             cfg.hidden_dropout_prob, device=device,
+                             shard=shard)
             for _ in range(cfg.num_hidden_layers))
         self.v_layer = nn.ModuleList(
             TransformerLayer(cfg.v_hidden_size, cfg.v_intermediate_size,
                              cfg.v_num_attention_heads, cfg.v_hidden_act, cfg,
                              cfg.v_attention_probs_dropout_prob,
-                             cfg.v_hidden_dropout_prob, device=device)
+                             cfg.v_hidden_dropout_prob, device=device,
+                             shard=shard)
             for _ in range(cfg.v_num_hidden_layers))
         self.c_layer = nn.ModuleList(
-            ConnectionLayer(cfg, device=device)
+            ConnectionLayer(cfg, device=device, shard=shard)
             for _ in range(len(cfg.v_biattention_id)))
 
     def _block(self, layer, rng, *xs):
@@ -222,7 +290,9 @@ class Encoder(nn.Module):
         the forward found it, the kernel-seed counter of ``rng`` and the
         state of its generator, so both passes draw the same dropout masks
         (``preserve_rng_state`` saves only the default generators, which no
-        site draws from)."""
+        site draws from).  Under a model axis the recompute runs the
+        block's collectives again; every rank replays its blocks in the
+        same order, so they meet."""
         if not (self.cfg.remat and rng is not None and torch.is_grad_enabled()):
             return layer(*xs, rng)
         sites, state = rng.sites, rng.generator.get_state()
@@ -304,19 +374,25 @@ class HeadTransform(nn.Module):
 
 
 class LMPredictionHead(nn.Module):
-    """Transform + decoder tied to the word embedding + bias."""
+    """Transform + decoder tied to the word embedding + bias.  With the
+    embedding sharded on the vocabulary the decoder keeps the shard: each
+    rank's logits are gathered on the vocabulary before the replicated
+    bias."""
 
-    def __init__(self, cfg: LilyConfig, device=None):
+    def __init__(self, cfg: LilyConfig, device=None,
+                 shard: ModelShard = ModelShard()):
         super().__init__()
+        self.shard = shard if shard.divides(cfg.vocab_size) else ModelShard()
         self.transform = HeadTransform(cfg.hidden_size, cfg.hidden_act,
                                        device=device)
-        self.decoder = Linear(cfg.hidden_size, cfg.vocab_size, bias=False,
-                              device=device)
+        self.decoder = Linear(cfg.hidden_size, self.shard.local(cfg.vocab_size),
+                              bias=False, device=device)
         self.bias = nn.Parameter(torch.zeros(cfg.vocab_size, device=device))
 
     def forward(self, x):
         h = self.transform(x)
-        return self.decoder(h) + self.bias.to(h.dtype)
+        logits = self.decoder(copy_to_model(h, self.shard))
+        return gather_from_model(logits, self.shard) + self.bias.to(h.dtype)
 
 
 class ImagePredictionHead(nn.Module):
@@ -332,9 +408,10 @@ class ImagePredictionHead(nn.Module):
 
 
 class PreTrainingHeads(nn.Module):
-    def __init__(self, cfg: LilyConfig, device=None):
+    def __init__(self, cfg: LilyConfig, device=None,
+                 shard: ModelShard = ModelShard()):
         super().__init__()
-        self.predictions = LMPredictionHead(cfg, device=device)
+        self.predictions = LMPredictionHead(cfg, device=device, shard=shard)
         # carried for checkpoint compatibility; Lily never reads it
         self.bi_seq_relationship = Linear(cfg.bi_hidden_size, 2, device=device)
         self.imagePredictions = ImagePredictionHead(cfg, device=device)
@@ -354,12 +431,13 @@ def fuse_pooled(cfg: LilyConfig, pooled_t, pooled_v):
 class BertModel(nn.Module):
     """Reference BertModel.forward (vilbert.py:1242-1337)."""
 
-    def __init__(self, cfg: LilyConfig, device=None):
+    def __init__(self, cfg: LilyConfig, device=None,
+                 shard: ModelShard = ModelShard()):
         super().__init__()
         self.cfg = cfg
-        self.embeddings = TextEmbeddings(cfg, device=device)
+        self.embeddings = TextEmbeddings(cfg, device=device, shard=shard)
         self.v_embeddings = VisionEmbeddings(cfg, device=device)
-        self.encoder = Encoder(cfg, device=device)
+        self.encoder = Encoder(cfg, device=device, shard=shard)
         self.t_pooler = Pooler(cfg.hidden_size, cfg.bi_hidden_size, device=device)
         self.v_pooler = Pooler(cfg.v_hidden_size, cfg.bi_hidden_size,
                                device=device)
@@ -391,15 +469,20 @@ class Lily(nn.Module):
     ``language_target_idx`` / ``vision_target_idx`` ([N, M]) restrict the
     masked-prediction heads to those rows.  In train mode (``.train()``)
     dropout is on and ``seed``, the forward's 64-bit dropout seed, is
-    required, and ``rank`` is the process's place in a data-parallel group
-    (``DropoutRng``); eval mode ignores both.  The weights are uninitialised until
-    ``init_weights`` or ``load_state_dict``."""
+    required, and ``rank`` is the process's data coordinate, its place on
+    the data axis (``DropoutRng``); eval mode ignores both.  ``shard`` is
+    the model axis (``parallel/tensor.py``): this process holds its shard
+    of the weights, whose full names and shapes ``state_dict`` keys
+    (``models/weights.py:shard_state_dict``).  The weights are
+    uninitialised until ``init_weights`` or ``load_state_dict``."""
 
-    def __init__(self, cfg: LilyConfig, device=None):
+    def __init__(self, cfg: LilyConfig, device=None,
+                 shard: ModelShard = ModelShard()):
         super().__init__()
         self.cfg = cfg
-        self.bert = BertModel(cfg, device=device)
-        self.cls = PreTrainingHeads(cfg, device=device)
+        self.shard = shard
+        self.bert = BertModel(cfg, device=device, shard=shard)
+        self.cls = PreTrainingHeads(cfg, device=device, shard=shard)
         self.vil_logit = Linear(cfg.bi_hidden_size, 1, device=device)
         self.judge = Linear(cfg.bi_hidden_size, 1, device=device)
         self.cls.predictions.decoder.weight = (
@@ -409,20 +492,34 @@ class Lily(nn.Module):
     def init_weights(self, seed: int) -> "Lily":
         """Reference init_bert_weights: N(0, initializer_range) weights and
         embeddings, zero biases, unit LayerNorm; word row 0 (padding) zero.
-        Drawn from a generator seeded with ``seed`` on the weights' device."""
+        Drawn from a generator seeded with ``seed`` on the weights' device;
+        a sharded weight draws the whole tensor and keeps its shard, so a
+        model axis starts from the one process's weights."""
         std = self.cfg.initializer_range
         gen = torch.Generator(device=self.vil_logit.weight.device)
         gen.manual_seed(seed)
+        rank, world = self.shard.rank, self.shard.world
         for m in self.modules():
             if isinstance(m, (Linear, nn.Embedding)):
-                m.weight.normal_(0.0, std, generator=gen)
+                w = m.weight
+                dim = getattr(w, "tp_dim", None)
+                if dim is None:
+                    w.normal_(0.0, std, generator=gen)
+                else:
+                    shape = list(w.shape)
+                    shape[dim] *= world
+                    full = torch.empty(shape, device=w.device)
+                    w.copy_(shard_tensor(full.normal_(0.0, std, generator=gen),
+                                         dim, rank, world))
             if isinstance(m, Linear) and m.bias is not None:
                 m.bias.zero_()
             elif isinstance(m, LayerNorm):
                 m.weight.fill_(1.0)
                 m.bias.zero_()
         self.cls.predictions.bias.zero_()
-        self.bert.embeddings.word_embeddings.weight[0] = 0.0
+        words = self.bert.embeddings.word_embeddings
+        if words.row0 == 0:
+            words.weight[0] = 0.0
         return self
 
     def forward(self, instr_tokens, image_features, image_locations,

@@ -9,6 +9,10 @@
     gamma/beta renames, the missing ``bert.`` prefix) and drops the dead
     ``biOutput.q_dense1`` / ``q_dense2`` keys, so that
     ``Lily.load_state_dict(..., strict=True)`` takes a reference ``.bin``.
+  * ``shard_state_dict`` cuts a full state dict (either of the above) into
+    one model rank's shard by ``parallel/mesh.py:param_spec``, the layout
+    of a ``Lily`` built with that rank's ``ModelShard``;
+    ``merge_state_dicts`` puts every rank's shards back together.
 """
 from __future__ import annotations
 
@@ -18,6 +22,8 @@ import numpy as np
 import torch
 
 from ..config import LilyConfig
+from ..parallel.mesh import param_spec
+from ..parallel.tensor import shard_tensor
 
 
 def _key_map(cfg: LilyConfig) -> List[Tuple[str, Tuple, str]]:
@@ -126,4 +132,36 @@ def normalize_state_dict(state_dict: Dict[str, Any]) -> Dict[str, torch.Tensor]:
             continue   # reference params its forward never reads
         out[k] = v if isinstance(v, torch.Tensor) else torch.from_numpy(
             np.array(v))
+    return out
+
+
+def full_shapes(cfg: LilyConfig) -> Dict[str, Tuple[int, ...]]:
+    """The shape of every state-dict tensor of an unsharded ``Lily`` of
+    ``cfg`` (built on the meta device: nothing is allocated)."""
+    from .vilbert import Lily
+    return {k: tuple(v.shape)
+            for k, v in Lily(cfg, device="meta").state_dict().items()}
+
+
+def shard_state_dict(full: Dict[str, torch.Tensor], extents: Dict[str, int],
+                     model_rank: int) -> Dict[str, torch.Tensor]:
+    """Model rank ``model_rank``'s shard of the full state dict ``full``
+    (keys of ``Lily``, full shapes) under the mesh ``extents``: every
+    tensor that ``param_spec`` shards is cut on its dim, the rest kept."""
+    world = extents.get("model", 1)
+    return {k: shard_tensor(v, param_spec(k, tuple(v.shape), extents),
+                            model_rank, world) for k, v in full.items()}
+
+
+def merge_state_dicts(shards: List[Dict[str, torch.Tensor]],
+                      shapes: Dict[str, Tuple[int, ...]]
+                      ) -> Dict[str, torch.Tensor]:
+    """The inverse of ``shard_state_dict``: the full state dict of every
+    model rank's shard, in rank order; ``shapes`` are the full shapes
+    (``full_shapes``)."""
+    extents = {"model": len(shards)}
+    out = {}
+    for k, v in shards[0].items():
+        dim = param_spec(k, shapes[k], extents)
+        out[k] = v if dim is None else torch.cat([s[k] for s in shards], dim)
     return out

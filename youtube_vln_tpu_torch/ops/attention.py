@@ -27,9 +27,14 @@ after them and the gradient of ``split_heads`` before them are free views.
 Dropout applies to the probabilities with the exact rate and scales kept
 values by 1 / (1 - rate) (``attention.py:40-45``); the mask comes from
 ``ops/philox.py`` (kernel and plain version draw the same bits) under one
-64-bit seed per call, with stream id b * H + h, plus ``stream0``, the
-call's first global stream: rank * B * H when each process of a
-data-parallel run holds B rows of the global batch, 0 in one process.
+64-bit seed per call, with stream id b * H + h of the whole problem: a
+call on B rows and H_local heads passes ``stream0``, its first global
+stream (data rank * B * H when each process of a data-parallel run holds
+B rows of the global batch, 0 in one process), and ``head0`` /
+``heads_total``, its first head of the problem's H when it holds a shard
+of the heads under tensor parallelism (model rank * H_local; 0 and 0, the
+call's own heads, without); row b, head h of the call then draws global
+stream stream0 + b * H + head0 + h (``ops/philox.py:global_streams``).
 """
 from __future__ import annotations
 
@@ -77,25 +82,28 @@ def _check_rate(rate: float) -> None:
         raise ValueError(f"attention dropout rate must be in [0, 1), got {rate}")
 
 
-def _drop(probs, rate: float, seed: int, direction: int, stream0: int = 0):
+def _drop(probs, rate: float, seed: int, direction: int, stream0: int = 0,
+          head0: int = 0, heads_total: int = 0):
     _check_rate(rate)
     if rate == 0.0:
         return probs
     b, h, s_q, s_kv = probs.shape
     keep = dropout_keep(seed, rate, b, h, s_q, s_kv, direction, probs.device,
-                        stream0=stream0)
+                        stream0=stream0, head0=head0, heads_total=heads_total)
     return torch.where(keep, probs / (1.0 - rate), 0.0)
 
 
 def attention_reference(q, k, v, key_bias: Optional[torch.Tensor],
                         dropout_rate: float = 0.0, seed: int = 0,
-                        direction: int = 0, stream0: int = 0):
+                        direction: int = 0, stream0: int = 0, head0: int = 0,
+                        heads_total: int = 0):
     """softmax(q k^T / sqrt(D) + key_bias) v with f32 scores and softmax,
     dropout on the probabilities; the probabilities are cast to v's dtype
     before P v (as ``models/layers.py:attention_core`` of the JAX
     package)."""
     probs = torch.softmax(attention_scores(q, k, key_bias), dim=-1)
-    probs = _drop(probs, dropout_rate, seed, direction, stream0)
+    probs = _drop(probs, dropout_rate, seed, direction, stream0, head0,
+                  heads_total)
     return torch.matmul(probs.to(v.dtype), v)
 
 
@@ -107,16 +115,19 @@ def attention_lse_reference(q, k, key_bias) -> torch.Tensor:
 
 def bi_attention_reference(q1, k1, v1, q2, k2, v2, v_bias, t_bias,
                            rate1: float = 0.0, rate2: float = 0.0,
-                           seed: int = 0, stream0: int = 0):
+                           seed: int = 0, stream0: int = 0, head0: int = 0,
+                           heads_total: int = 0):
     """(ctx1, ctx2): text queries q2 over vision k1/v1 (direction 0, rate1),
     vision queries q1 over text k2/v2 (direction 1, rate2)."""
-    return (attention_reference(q2, k1, v1, v_bias, rate1, seed, 0, stream0),
-            attention_reference(q1, k2, v2, t_bias, rate2, seed, 1, stream0))
+    streams = (stream0, head0, heads_total)
+    return (attention_reference(q2, k1, v1, v_bias, rate1, seed, 0, *streams),
+            attention_reference(q1, k2, v2, t_bias, rate2, seed, 1, *streams))
 
 
 def attention_bwd_reference(q, k, v, key_bias, do, dropout_rate: float = 0.0,
                             seed: int = 0, direction: int = 0,
-                            stream0: int = 0):
+                            stream0: int = 0, head0: int = 0,
+                            heads_total: int = 0):
     """(dq, dk, dv) of ``attention_reference`` for the output gradient
     ``do``, computed as the TPU kernel does (``_bwd_kernel``): recompute P,
     replay the dropout mask, dV = P~^T dO, dP = mask * (dO V^T) / (1 - r),
@@ -125,10 +136,11 @@ def attention_bwd_reference(q, k, v, key_bias, do, dropout_rate: float = 0.0,
     scale = 1.0 / math.sqrt(q.shape[-1])
     q32, k32, v32, do32 = q.float(), k.float(), v.float(), do.float()
     p = torch.softmax(attention_scores(q, k, key_bias), dim=-1)
-    p_drop = _drop(p, dropout_rate, seed, direction, stream0)
+    streams = (stream0, head0, heads_total)
+    p_drop = _drop(p, dropout_rate, seed, direction, *streams)
     dv = torch.matmul(p_drop.transpose(-1, -2), do32)
     dp = _drop(torch.matmul(do32, v32.transpose(-1, -2)), dropout_rate,
-               seed, direction, stream0)
+               seed, direction, *streams)
     ds = p * (dp - (p * dp).sum(-1, keepdim=True)) * scale
     return (torch.matmul(ds, k32).to(q.dtype),
             torch.matmul(ds.transpose(-1, -2), q32).to(k.dtype),
@@ -137,13 +149,15 @@ def attention_bwd_reference(q, k, v, key_bias, do, dropout_rate: float = 0.0,
 
 def bi_attention_bwd_reference(q1, k1, v1, q2, k2, v2, v_bias, t_bias, do1,
                                do2, rate1: float = 0.0, rate2: float = 0.0,
-                               seed: int = 0, stream0: int = 0):
+                               seed: int = 0, stream0: int = 0, head0: int = 0,
+                               heads_total: int = 0):
     """(dq1, dk1, dv1, dq2, dk2, dv2) of ``bi_attention_reference``
     (``_bi_bwd_kernel``)."""
+    streams = (stream0, head0, heads_total)
     dq2, dk1, dv1 = attention_bwd_reference(q2, k1, v1, v_bias, do1, rate1,
-                                            seed, 0, stream0)
+                                            seed, 0, *streams)
     dq1, dk2, dv2 = attention_bwd_reference(q1, k2, v2, t_bias, do2, rate2,
-                                            seed, 1, stream0)
+                                            seed, 1, *streams)
     return dq1, dk1, dv1, dq2, dk2, dv2
 
 
@@ -154,8 +168,9 @@ class _Dropout(ctypes.Structure):
     """Mirror of ``struct vln_philox::Dropout`` in csrc/philox.cuh."""
     _fields_ = ([(n, ctypes.c_uint32) for n in
                  ("seed_lo", "seed_hi", "threshold", "direction")]
-                + [("keep_scale", ctypes.c_float), ("enabled", ctypes.c_int),
-                   ("offset", ctypes.c_uint32)])
+                + [("keep_scale", ctypes.c_float), ("enabled", ctypes.c_int)]
+                + [(n, ctypes.c_uint32) for n in ("offset", "heads_total",
+                                                  "head0")])
 
 
 class _Problem(ctypes.Structure):
@@ -237,16 +252,30 @@ def _output(q: torch.Tensor) -> torch.Tensor:
                        device=q.device).transpose(1, 2)
 
 
-def _dropout(rate: float, seed: int, direction: int,
-             offset: int = 0) -> _Dropout:
+def _dropout(rate: float, seed: int, direction: int, offset: int = 0,
+             heads_total: int = 0, head0: int = 0) -> _Dropout:
     """The Dropout settings of a launch; ``offset`` is its first global
-    stream (B1-B4) or row (B5/B6)."""
+    stream (B1-B4) or row (B5/B6), ``heads_total`` and ``head0`` the
+    problem's heads and the launch's first (B1-B4)."""
     _check_rate(rate)
-    if not 0 <= offset < 2 ** 32:
-        raise ValueError(f"dropout offset {offset} outside [0, 2^32)")
+    for name, x in (("offset", offset), ("heads_total", heads_total),
+                    ("head0", head0)):
+        if not 0 <= x < 2 ** 32:
+            raise ValueError(f"dropout {name} {x} outside [0, 2^32)")
     lo, hi = seed_key(seed)
     return _Dropout(lo, hi, keep_threshold(rate), direction,
-                    1.0 / (1.0 - rate), int(rate > 0.0), offset)
+                    1.0 / (1.0 - rate), int(rate > 0.0), offset, heads_total,
+                    head0)
+
+
+def _heads(q: torch.Tensor, head0: int, heads_total: int) -> Tuple[int, int]:
+    """(heads_total, head0) of a launch on q's heads, checked."""
+    heads = q.shape[1]
+    total = heads_total or heads
+    if head0 < 0 or head0 + heads > total:
+        raise ValueError(f"heads [{head0}, {head0 + heads}) outside the "
+                         f"problem's {total}")
+    return total, head0
 
 
 def _check_kv(q, k, v):
@@ -255,25 +284,27 @@ def _check_kv(q, k, v):
                          f"match q {tuple(q.shape)}")
 
 
-def _problem(q, k, v, bias, out, lse, rate, seed, direction,
-             stream0=0) -> _Problem:
+def _problem(q, k, v, bias, out, lse, rate, seed, direction, stream0=0,
+             head0=0, heads_total=0) -> _Problem:
     _check_kv(q, k, v)
     return _Problem(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
                     out.data_ptr(), 0 if lse is None else lse.data_ptr(),
                     *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                     *out.stride()[:3], q.shape[2], k.shape[2],
-                    _dropout(rate, seed, direction, stream0))
+                    _dropout(rate, seed, direction, stream0,
+                             *_heads(q, head0, heads_total)))
 
 
 def _bwd_problem(q, k, v, bias, o, do, lse, delta, dq, dk, dv, rate, seed,
-                 direction, stream0=0) -> _BwdProblem:
+                 direction, stream0=0, head0=0, heads_total=0) -> _BwdProblem:
     _check_kv(q, k, v)
     tensors = (q, k, v, o, do, dq, dk, dv)
     return _BwdProblem(*(t.data_ptr() for t in (q, k, v, bias, o, do, lse,
                                                  delta, dq, dk, dv)),
                        *(s for t in tensors for s in t.stride()[:3]),
                        q.shape[2], k.shape[2],
-                       _dropout(rate, seed, direction, stream0))
+                       _dropout(rate, seed, direction, stream0,
+                                *_heads(q, head0, heads_total)))
 
 
 def _launch(name: str, p0, p1, q: torch.Tensor) -> None:
@@ -299,7 +330,8 @@ def _lse(q: torch.Tensor) -> torch.Tensor:
 # --------------------------------------------------------------------------- #
 # B1 / B3
 # --------------------------------------------------------------------------- #
-def _attention_fwd(q, k, v, bias, rate, seed, want_lse, stream0=0):
+def _attention_fwd(q, k, v, bias, rate, seed, want_lse, stream0=0, head0=0,
+                   heads_total=0):
     """B1 on CUDA operands: (out, lse or None, the operands as read)."""
     q = _operand(q, q)
     k, v = _operand(k, q), _operand(v, q)
@@ -307,39 +339,42 @@ def _attention_fwd(q, k, v, bias, rate, seed, want_lse, stream0=0):
     out = _output(q)
     lse = _lse(q) if want_lse else None
     _launch("attention_fwd",
-            _problem(q, k, v, bias, out, lse, rate, seed, 0, stream0),
-            _Problem(), q)
+            _problem(q, k, v, bias, out, lse, rate, seed, 0, stream0, head0,
+                     heads_total), _Problem(), q)
     LAUNCHES["attention_fwd"] += 1
     return out, lse, (q, k, v, bias)
 
 
-def _attention_bwd(q, k, v, bias, o, do, lse, rate, seed, stream0=0):
+def _attention_bwd(q, k, v, bias, o, do, lse, rate, seed, stream0=0, head0=0,
+                   heads_total=0):
     """B3 on CUDA operands: (dq, dk, dv)."""
     do = _operand(do, q)
     dq, dk, dv = _output(q), _output(k), _output(v)
     delta = torch.empty_like(lse)
     _launch("attention_bwd",
             _bwd_problem(q, k, v, bias, o, do, lse, delta, dq, dk, dv, rate,
-                         seed, 0, stream0), _BwdProblem(), q)
+                         seed, 0, stream0, head0, heads_total),
+            _BwdProblem(), q)
     LAUNCHES["attention_bwd"] += 1
     return dq, dk, dv
 
 
 class FusedAttentionFn(torch.autograd.Function):
-    """B1 forward, B3 backward (plain versions for CPU tensors)."""
+    """B1 forward, B3 backward (plain versions for CPU tensors);
+    ``streams`` is (stream0, head0, heads_total)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, key_bias, dropout_rate, seed, stream0):
-        ctx.rate, ctx.seed, ctx.stream0 = dropout_rate, seed, stream0
+    def forward(ctx, q, k, v, key_bias, dropout_rate, seed, streams):
+        ctx.rate, ctx.seed, ctx.streams = dropout_rate, seed, streams
         if _on_cpu(q, k, v, key_bias):
             ctx.on_cpu = True
             ctx.save_for_backward(q, k, v, key_bias)
             return attention_reference(q, k, v, key_bias, dropout_rate, seed,
-                                       0, stream0)
+                                       0, *streams)
         ctx.on_cpu = False
         out, lse, (q, k, v, bias) = _attention_fwd(q, k, v, key_bias,
                                                    dropout_rate, seed, True,
-                                                   stream0)
+                                                   *streams)
         ctx.save_for_backward(q, k, v, bias, out, lse)
         return out
 
@@ -348,13 +383,13 @@ class FusedAttentionFn(torch.autograd.Function):
         if ctx.on_cpu:
             q, k, v, bias = ctx.saved_tensors
             grads = attention_bwd_reference(q, k, v, bias, do, ctx.rate,
-                                            ctx.seed, 0, ctx.stream0)
+                                            ctx.seed, 0, *ctx.streams)
         else:
             # read once: activation checkpointing (--remat) unpacks each
             # saved tensor a single time
             q, k, v, bias, out, lse = ctx.saved_tensors
             grads = _attention_bwd(q, k, v, bias, out, do, lse, ctx.rate,
-                                   ctx.seed, ctx.stream0)
+                                   ctx.seed, *ctx.streams)
         return (*grads, None, None, None, None)
 
 
@@ -363,29 +398,32 @@ def _records_grad(*tensors) -> bool:
 
 
 def fused_attention(q, k, v, key_bias=None, *, dropout_rate: float = 0.0,
-                    seed: int = 0, stream0: int = 0):
+                    seed: int = 0, stream0: int = 0, head0: int = 0,
+                    heads_total: int = 0):
     """B1: dropout(softmax(q k^T / sqrt(D) + key_bias)) v per (batch, head);
     its gradient is B3.
 
     q: [B, H, S_q, D]; k, v: [B, H, S_kv, D]; key_bias: [B, S_kv] f32 or
-    None; ``seed`` is the call's 64-bit dropout seed and ``stream0`` its
-    first global stream (0 in one process).  Returns [B, H, S_q, D] in q's
-    dtype."""
+    None; ``seed`` is the call's 64-bit dropout seed, ``stream0`` its first
+    global stream (0 in one process) and ``head0`` / ``heads_total`` its
+    first head of the problem's (0 / 0: the call holds every head).
+    Returns [B, H, S_q, D] in q's dtype."""
+    streams = (int(stream0), int(head0), int(heads_total))
     if _records_grad(q, k, v):
         return FusedAttentionFn.apply(q, k, v, key_bias, float(dropout_rate),
-                                      int(seed), int(stream0))
+                                      int(seed), streams)
     if _on_cpu(q, k, v, key_bias):
         return attention_reference(q, k, v, key_bias, dropout_rate, seed, 0,
-                                   stream0)
+                                   *streams)
     return _attention_fwd(q, k, v, key_bias, dropout_rate, seed, False,
-                          stream0)[0]
+                          *streams)[0]
 
 
 # --------------------------------------------------------------------------- #
 # B2 / B4
 # --------------------------------------------------------------------------- #
 def _bi_attention_fwd(q1, k1, v1, q2, k2, v2, v_bias, t_bias, rate1, rate2,
-                      seed, want_lse, stream0=0):
+                      seed, want_lse, stream0=0, head0=0, heads_total=0):
     """B2 on CUDA operands: (ctx1, ctx2, lse1, lse2, operands as read)."""
     q1 = _operand(q1, q1)
     k1, v1, q2, k2, v2 = (_operand(x, q1) for x in (k1, v1, q2, k2, v2))
@@ -394,45 +432,49 @@ def _bi_attention_fwd(q1, k1, v1, q2, k2, v2, v_bias, t_bias, rate1, rate2,
     tb = _key_bias(t_bias, b, k2.shape[2], q1.device)
     ctx1, ctx2 = _output(q2), _output(q1)
     lse1, lse2 = (_lse(q2), _lse(q1)) if want_lse else (None, None)
+    streams = (stream0, head0, heads_total)
     _launch("attention_fwd",
-            _problem(q2, k1, v1, vb, ctx1, lse1, rate1, seed, 0, stream0),
-            _problem(q1, k2, v2, tb, ctx2, lse2, rate2, seed, 1, stream0), q1)
+            _problem(q2, k1, v1, vb, ctx1, lse1, rate1, seed, 0, *streams),
+            _problem(q1, k2, v2, tb, ctx2, lse2, rate2, seed, 1, *streams), q1)
     LAUNCHES["bi_attention_fwd"] += 1
     return ctx1, ctx2, lse1, lse2, (q1, k1, v1, q2, k2, v2, vb, tb)
 
 
 def _bi_attention_bwd(q1, k1, v1, q2, k2, v2, vb, tb, ctx1, ctx2, lse1, lse2,
-                      do1, do2, rate1, rate2, seed, stream0=0):
+                      do1, do2, rate1, rate2, seed, stream0=0, head0=0,
+                      heads_total=0):
     """B4 on CUDA operands: (dq1, dk1, dv1, dq2, dk2, dv2)."""
     do1, do2 = _operand(do1, q1), _operand(do2, q1)
     dq1, dk1, dv1 = _output(q1), _output(k1), _output(v1)
     dq2, dk2, dv2 = _output(q2), _output(k2), _output(v2)
     delta1, delta2 = torch.empty_like(lse1), torch.empty_like(lse2)
+    streams = (stream0, head0, heads_total)
     _launch("attention_bwd",
             _bwd_problem(q2, k1, v1, vb, ctx1, do1, lse1, delta1, dq2, dk1,
-                         dv1, rate1, seed, 0, stream0),
+                         dv1, rate1, seed, 0, *streams),
             _bwd_problem(q1, k2, v2, tb, ctx2, do2, lse2, delta2, dq1, dk2,
-                         dv2, rate2, seed, 1, stream0), q1)
+                         dv2, rate2, seed, 1, *streams), q1)
     LAUNCHES["bi_attention_bwd"] += 1
     return dq1, dk1, dv1, dq2, dk2, dv2
 
 
 class FusedBiAttentionFn(torch.autograd.Function):
-    """B2 forward, B4 backward (plain versions for CPU tensors)."""
+    """B2 forward, B4 backward (plain versions for CPU tensors);
+    ``streams`` is (stream0, head0, heads_total)."""
 
     @staticmethod
     def forward(ctx, q1, k1, v1, q2, k2, v2, v_bias, t_bias, rate1, rate2,
-                seed, stream0):
-        ctx.rates, ctx.seed, ctx.stream0 = (rate1, rate2), seed, stream0
+                seed, streams):
+        ctx.rates, ctx.seed, ctx.streams = (rate1, rate2), seed, streams
         if _on_cpu(q1, k1, v1, q2, k2, v2, v_bias, t_bias):
             ctx.on_cpu = True
             ctx.save_for_backward(q1, k1, v1, q2, k2, v2, v_bias, t_bias)
             return bi_attention_reference(q1, k1, v1, q2, k2, v2, v_bias,
-                                          t_bias, rate1, rate2, seed, stream0)
+                                          t_bias, rate1, rate2, seed, *streams)
         ctx.on_cpu = False
         ctx1, ctx2, lse1, lse2, ops = _bi_attention_fwd(
             q1, k1, v1, q2, k2, v2, v_bias, t_bias, rate1, rate2, seed, True,
-            stream0)
+            *streams)
         ctx.save_for_backward(*ops, ctx1, ctx2, lse1, lse2)
         return ctx1, ctx2
 
@@ -441,16 +483,16 @@ class FusedBiAttentionFn(torch.autograd.Function):
         if ctx.on_cpu:
             grads = bi_attention_bwd_reference(*ctx.saved_tensors, do1, do2,
                                                *ctx.rates, ctx.seed,
-                                               ctx.stream0)
+                                               *ctx.streams)
         else:
             grads = _bi_attention_bwd(*ctx.saved_tensors, do1, do2,
-                                      *ctx.rates, ctx.seed, ctx.stream0)
+                                      *ctx.rates, ctx.seed, *ctx.streams)
         return (*grads, None, None, None, None, None, None)
 
 
 def fused_bi_attention(q1, k1, v1, q2, k2, v2, v_bias=None, t_bias=None, *,
                        rate1: float = 0.0, rate2: float = 0.0, seed: int = 0,
-                       stream0: int = 0
+                       stream0: int = 0, head0: int = 0, heads_total: int = 0
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """B2: both directions of co-attention in one launch; its gradient is
     B4 (one launch for both directions).
@@ -460,13 +502,15 @@ def fused_bi_attention(q1, k1, v1, q2, k2, v2, v_bias=None, t_bias=None, *,
     ctx2 [B, H, S_v, D]): text queries over vision keys (dropout rate1,
     ``v_attention_probs_dropout_prob``), and vision queries over text keys
     (rate2, ``attention_probs_dropout_prob``), both masks from ``seed`` from
-    the first global stream ``stream0``."""
+    the first global stream ``stream0`` on heads [head0, head0 + H) of
+    ``heads_total`` (0: the call holds every head)."""
+    streams = (int(stream0), int(head0), int(heads_total))
     if _records_grad(q1, k1, v1, q2, k2, v2):
         return FusedBiAttentionFn.apply(q1, k1, v1, q2, k2, v2, v_bias, t_bias,
                                         float(rate1), float(rate2), int(seed),
-                                        int(stream0))
+                                        streams)
     if _on_cpu(q1, k1, v1, q2, k2, v2, v_bias, t_bias):
         return bi_attention_reference(q1, k1, v1, q2, k2, v2, v_bias, t_bias,
-                                      rate1, rate2, seed, stream0)
+                                      rate1, rate2, seed, *streams)
     return _bi_attention_fwd(q1, k1, v1, q2, k2, v2, v_bias, t_bias, rate1,
-                             rate2, seed, False, stream0)[:2]
+                             rate2, seed, False, *streams)[:2]

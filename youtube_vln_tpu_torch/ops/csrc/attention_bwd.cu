@@ -170,6 +170,7 @@ __device__ void dkdv_tile_bf16(const BwdProblem& p, int heads, int bh, int tile,
   float* sstat = reinterpret_cast<float*>(smem + R::tiles_bytes);
 
   const int b = bh / heads, h = bh % heads;
+  const uint32_t stream = vln_philox::global_stream(p.dropout, bh, heads);
   const bf16* q = static_cast<const bf16*>(p.q) + b * p.q_sb + h * p.q_sh;
   const bf16* k = static_cast<const bf16*>(p.k) + b * p.k_sb + h * p.k_sh;
   const bf16* v = static_cast<const bf16*>(p.v) + b * p.v_sb + h * p.v_sh;
@@ -264,7 +265,7 @@ __device__ void dkdv_tile_bf16(const BwdProblem& p, int heads, int bh, int tile,
         if (p.dropout.enabled) {
           // group bits (query, key): 0 (qa, key), 1 (qa, key + 1),
           // 2 (qa + 8, key), 3 (qa + 8, key + 1) -> element order
-          const uint32_t gb = vln_philox::keep_group(p.dropout, bh, qa, key);
+          const uint32_t gb = vln_philox::keep_group(p.dropout, stream, qa, key);
           bits = (gb & 9u) | ((gb & 2u) << 1) | ((gb & 4u) >> 1);
         }
 #pragma unroll
@@ -338,6 +339,7 @@ __device__ void dq_tile_bf16(const BwdProblem& p, int heads, int bh, int tile,
   float* sbias = reinterpret_cast<float*>(smem + R::tiles_bytes);
 
   const int b = bh / heads, h = bh % heads;
+  const uint32_t stream = vln_philox::global_stream(p.dropout, bh, heads);
   const bf16* q = static_cast<const bf16*>(p.q) + b * p.q_sb + h * p.q_sh;
   const bf16* k = static_cast<const bf16*>(p.k) + b * p.k_sb + h * p.k_sh;
   const bf16* v = static_cast<const bf16*>(p.v) + b * p.v_sb + h * p.v_sh;
@@ -422,7 +424,7 @@ __device__ void dq_tile_bf16(const BwdProblem& p, int heads, int bh, int tile,
     for (int n = 0; n < BN / 8; ++n) {
       const int c = n * 8 + 2 * t;
       const uint32_t bits =
-          p.dropout.enabled ? vln_philox::keep_group(p.dropout, bh, row, k0 + c) : 0xFu;
+          p.dropout.enabled ? vln_philox::keep_group(p.dropout, stream, row, k0 + c) : 0xFu;
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int r = i >> 1, e = i & 1;
@@ -542,6 +544,7 @@ __device__ void probs_and_grads(const BwdProblem& p, int bh, int heads, int q0,
                                 int lane) {
   using Lay = Layout<D>;
   const float* bias = p.bias + (long long)(bh / heads) * p.s_kv;
+  const uint32_t stream = vln_philox::global_stream(p.dropout, bh, heads);
   for (int r = 0; r < 16; ++r) {
     const int row = r0 + r;
     const bool row_ok = q0 + row < p.s_q;
@@ -555,7 +558,7 @@ __device__ void probs_and_grads(const BwdProblem& p, int bh, int heads, int q0,
         float dp = sdP[row * Lay::SP + c];
         pt = pr;
         if (p.dropout.enabled) {
-          const bool kept = vln_philox::keep(p.dropout, bh, q0 + row, k0 + c);
+          const bool kept = vln_philox::keep(p.dropout, stream, q0 + row, k0 + c);
           pt = kept ? pr * p.dropout.keep_scale : 0.0f;
           dp = kept ? dp * p.dropout.keep_scale : 0.0f;
         }

@@ -61,8 +61,10 @@
 // kernel normalises first and drops second (attention.py:54-61).  The
 // bf16 instances draw one Philox call per fragment of 2 rows x 2 keys and
 // use its four words (keep_group); the mask is a pure function of (seed,
-// stream b*H + h, query row, key, direction), so the backward kernels of
-// attention_bwd.cu replay it tile by tile.  When the problem carries an lse
+// global stream b*H + h, query row, key, direction), so the backward
+// kernels of attention_bwd.cu replay it tile by tile.  A block computes its
+// global stream once (global_stream): a launch on a shard of the rows or of
+// the heads draws that shard's entries of the whole problem's mask.  When the problem carries an lse
 // pointer the kernel writes the f32 row statistic LSE = m + log(l) per
 // query row ([B*H, s_q]) for the backward.
 //
@@ -160,6 +162,7 @@ __device__ void attend_tile_bf16(const Problem& p, int heads, int bh, int tile,
   float* sbias = reinterpret_cast<float*>(smem + R::tiles_bytes);
 
   const int b = bh / heads, h = bh % heads;
+  const uint32_t stream = vln_philox::global_stream(p.dropout, bh, heads);
   const bf16* q = static_cast<const bf16*>(p.q) + b * p.q_sb + h * p.q_sh;
   const bf16* k = static_cast<const bf16*>(p.k) + b * p.k_sb + h * p.k_sh;
   const bf16* v = static_cast<const bf16*>(p.v) + b * p.v_sb + h * p.v_sh;
@@ -256,7 +259,7 @@ __device__ void attend_tile_bf16(const Problem& p, int heads, int bh, int tile,
       if (p.dropout.enabled) {
         // bit i of the group is accumulator element i
         const uint32_t bits =
-            vln_philox::keep_group(p.dropout, bh, row, k0 + n * 8 + 2 * t);
+            vln_philox::keep_group(p.dropout, stream, row, k0 + n * 8 + 2 * t);
 #pragma unroll
         for (int i = 0; i < 4; ++i)
           s[n][i] = (bits >> i) & 1u ? s[n][i] * p.dropout.keep_scale : 0.0f;
@@ -356,6 +359,7 @@ __device__ void attend_tile_f32(const Problem& p, int heads, int bh, int tile,
   float* sA = sL + BM;                                       // rescale factor
 
   const int b = bh / heads, h = bh % heads;
+  const uint32_t stream = vln_philox::global_stream(p.dropout, bh, heads);
   const float* q = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
   const float* k = static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh;
   const float* v = static_cast<const float*>(p.v) + b * p.v_sb + h * p.v_sh;
@@ -409,7 +413,7 @@ __device__ void attend_tile_f32(const Problem& p, int heads, int bh, int tile,
         const float e = expf(x[j] - m_new);  // 0 for keys past s_kv
         float pe = e;                        // the share that meets V
         if (p.dropout.enabled)
-          pe = vln_philox::keep(p.dropout, bh, q0 + row, k0 + c)
+          pe = vln_philox::keep(p.dropout, stream, q0 + row, k0 + c)
                    ? e * p.dropout.keep_scale
                    : 0.0f;
         sS[row * Lay::SP + c] = pe;

@@ -11,10 +11,16 @@
 // 2 * ((i >> 3) & 1) + (j & 1): x (i0, j0), y (i0, j0 + 1), z (i0 + 8, j0),
 // w (i0 + 8, j0 + 1).  The entry is kept when its word is at least the
 // threshold rate * 2^32.  ``stream`` is the global row b * H + h of the
-// problem: the launch's own b * H + h plus Dropout::offset, the first
-// stream of this process's shard of a data-parallel batch (0 in one
-// process), so a shard draws the rows of the whole batch's mask that it
-// holds.  The group is exactly what one thread holds of an
+// problem (global_stream): a launch of B rows and heads_local heads holds
+// block bh = b_local * heads_local + h_local, whose global stream is
+//   offset + b_local * heads_total + head0 + h_local,
+// with Dropout::offset the first stream of this process's rows of a
+// data-parallel batch (rank * B * heads_total, 0 in one process) and
+// head0 the first head of its shard of the heads under tensor parallelism
+// (model rank * heads_local, 0 without).  A shard, of rows, of heads or of
+// both, so draws the entries of the whole problem's mask that it holds;
+// with heads_total = heads_local and head0 = 0 the stream is offset + bh.
+// The group is exactly what one thread holds of an
 // m16n8 mma.sync accumulator (rows {r, r + 8} x keys {2c, 2c + 1}), so the
 // bf16 forward and the dQ pass draw one call per fragment; the dK/dV pass
 // computes the transposed scores and permutes its rows through ldmatrix
@@ -67,7 +73,17 @@ struct Dropout {
   int enabled;
   uint32_t offset;     // first global stream (B1-B4) or row (B5/B6) of the
                        // launch: rank * (its streams or rows) under DDP
+  uint32_t heads_total;  // B1-B4: heads of the whole problem
+  uint32_t head0;        // B1-B4: first head of the launch's shard
 };
+
+// The global stream of block bh of a launch with ``heads`` heads per row,
+// computed once per block.
+__device__ __forceinline__ uint32_t global_stream(const Dropout& d, int bh,
+                                                  int heads) {
+  return d.offset + (uint32_t)(bh / heads) * d.heads_total + d.head0 +
+         (uint32_t)(bh % heads);
+}
 
 // bit k set when word k of w is at least the threshold
 __device__ __forceinline__ uint32_t kept4(uint4 w, uint32_t threshold) {
@@ -75,11 +91,12 @@ __device__ __forceinline__ uint32_t kept4(uint4 w, uint32_t threshold) {
          ((uint32_t)(w.z >= threshold) << 2) | ((uint32_t)(w.w >= threshold) << 3);
 }
 
-// Keep bits of the attention group holding (i, j): bit 0 (i0, j0), bit 1
-// (i0, j0 + 1), bit 2 (i0 + 8, j0), bit 3 (i0 + 8, j0 + 1).
+// Keep bits of the attention group holding (i, j) of global stream
+// ``stream`` (global_stream): bit 0 (i0, j0), bit 1 (i0, j0 + 1), bit 2
+// (i0 + 8, j0), bit 3 (i0 + 8, j0 + 1).
 __device__ __forceinline__ uint32_t keep_group(const Dropout& d, uint32_t stream,
                                                uint32_t i, uint32_t j) {
-  return kept4(philox4(((i >> 4) << 3) | (i & 7u), j >> 1, d.offset + stream,
+  return kept4(philox4(((i >> 4) << 3) | (i & 7u), j >> 1, stream,
                        d.direction, d.seed_lo, d.seed_hi), d.threshold);
 }
 

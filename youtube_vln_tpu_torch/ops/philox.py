@@ -16,11 +16,19 @@ of entries, all four of its words used:
 
 with ``stream`` the global row id b*H + h, ``i`` the query row, ``j`` the
 key, and ``direction`` 0 for B1 and for B2's text->vision direction, 1 for
-B2's vision->text direction.  Under data parallelism a process holds a
-shard of the global batch and passes its first global stream ``stream0``
-(rank * B_local * H; 0 in one process), so each shard draws its rows of
-the mask the whole batch would draw, as the TPU kernels do with their
-batch-sharded row-id operand (``youtube_vln_tpu/ops/attention.py:56-59``).  The group of (i, j) is rows {i0, i0 + 8} x
+B2's vision->text direction.  A call of B rows and H_local heads holds
+local rows bh = b * H_local + h, whose global stream is
+
+    stream0 + b * heads_total + head0 + h
+
+Under data parallelism a process holds a shard of the global batch and
+passes its first global stream ``stream0`` (data rank * B * heads_total; 0
+in one process); under tensor parallelism it holds a shard of the heads,
+``head0`` its first (model rank * H_local) of ``heads_total``.  Each shard
+so draws its entries of the mask the whole problem would draw, as the TPU
+kernels do with their sharded (batch, head) row-id operand
+(``youtube_vln_tpu/ops/attention.py:56-59, 119-136``); heads_total =
+H_local and head0 = 0 give stream0 + bh.  The group of (i, j) is rows {i0, i0 + 8} x
 keys {j0, j0 + 1} (i0: i with bit 3 cleared, j0: j with bit 0 cleared):
 what one thread holds of an m16n8 ``mma.sync`` accumulator, so the kernels
 draw one call per fragment (``csrc/philox.cuh``).  A probability is kept
@@ -107,13 +115,29 @@ def site_seed(base: int, site: int) -> int:
     return _splitmix64(_splitmix64(base & MASK64) ^ site)
 
 
+def global_streams(batch: int, heads: int, stream0: int = 0, head0: int = 0,
+                   heads_total: int = 0, device=None) -> torch.Tensor:
+    """The global stream of each local row b * heads + h of a call
+    ([batch * heads] int64; ``heads_total`` 0 means ``heads``)."""
+    total = heads_total or heads
+    if head0 + heads > total:
+        raise ValueError(f"heads [{head0}, {head0 + heads}) outside the "
+                         f"problem's {total}")
+    b = torch.arange(batch, dtype=torch.int64, device=device)[:, None]
+    h = torch.arange(heads, dtype=torch.int64, device=device)[None, :]
+    return (stream0 + b * total + head0 + h).reshape(-1)
+
+
 def dropout_keep(seed: int, rate: float, batch: int, heads: int, s_q: int,
                  s_kv: int, direction: int = 0, device=None, q0: int = 0,
-                 k0: int = 0, stream0: int = 0) -> torch.Tensor:
+                 k0: int = 0, stream0: int = 0, head0: int = 0,
+                 heads_total: int = 0) -> torch.Tensor:
     """The keep mask [batch, heads, s_q, s_kv] (bool) of query rows
     [q0, q0 + s_q) and keys [k0, k0 + s_kv) of one attention call whose
-    first global stream is ``stream0``, bit for bit the mask its kernel
-    draws.  One Philox call per 2 x 2 group, as on the card."""
+    first global stream is ``stream0`` and whose heads are [head0, head0 +
+    heads) of ``heads_total`` (0: the call holds every head), bit for bit
+    the mask its kernel draws.  One Philox call per 2 x 2 group, as on the
+    card."""
     key = seed_key(seed)
     thresh = keep_threshold(rate)
     i = torch.arange(q0, q0 + s_q, dtype=torch.int64, device=device)
@@ -131,10 +155,9 @@ def dropout_keep(seed: int, rate: float, batch: int, heads: int, s_q: int,
     out = torch.empty(batch * heads, s_q, s_kv, dtype=torch.bool,
                       device=device)
     step = max(1, _CHUNK // max(1, 4 * rows.shape[0] * cols.shape[1]))
+    streams = global_streams(batch, heads, stream0, head0, heads_total, device)
     for r0 in range(0, batch * heads, step):
-        stream = torch.arange(stream0 + r0,
-                              stream0 + min(r0 + step, batch * heads),
-                              dtype=torch.int64, device=device)[:, None, None]
+        stream = streams[r0:r0 + step, None, None]
         words = torch.stack(philox4x32(rows, cols, stream, direction, key),
                             dim=-1) >= thresh
         out[r0:r0 + step] = words[:, gi, cj, word]

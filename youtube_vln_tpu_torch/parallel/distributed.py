@@ -1,5 +1,6 @@
-"""Process-group set-up and host-side helpers of data-parallel training
-(counterpart of ``youtube_vln_tpu/parallel/distributed.py``).
+"""Process-group set-up, the data x model mesh and host-side helpers of
+distributed training (counterpart of
+``youtube_vln_tpu/parallel/distributed.py``).
 
 One process per GPU, started by ``torchrun`` or any launcher that sets
 ``RANK`` (or ``SLURM_PROCID`` / ``NODE_RANK``), ``WORLD_SIZE`` (or
@@ -13,6 +14,14 @@ A process never carries on alone where the environment shows a
 multi-process job: a failed rendezvous raises, and so does a
 ``LOCAL_RANK`` that names no device.  Without launcher variables
 ``initialize`` is a no-op and every helper answers for one process.
+
+``init_mesh(data, model)`` lays the group out as the JAX ``make_mesh``
+does, row-major: global rank r sits at data coordinate r // model and
+model coordinate r % model.  It builds one subgroup per data coordinate
+(its ``model`` ranks, which hold the same rows and shards of the weights)
+and one per model coordinate (its ``data`` ranks, which hold the same
+shard of the weights and different rows).  Without it, or at model 1, the
+data group is the whole world and the model group a single process.
 """
 from __future__ import annotations
 
@@ -22,6 +31,8 @@ from typing import Mapping, Optional
 
 import torch
 import torch.distributed as dist
+
+from .tensor import ModelShard
 
 # ranks and world sizes, in the order the reference resolves them
 RANK_VARS = ("RANK", "SLURM_PROCID", "NODE_RANK")
@@ -125,6 +136,83 @@ def rank() -> int:
     return dist.get_rank() if dist.is_initialized() else 0
 
 
+class _Mesh:
+    """The mesh of this process: the extents, its coordinates and the two
+    subgroups it belongs to (None: the whole world, or a single process)."""
+
+    def __init__(self, data: int = 1, model: int = 1, data_group=None,
+                 model_group=None):
+        self.data, self.model = data, model
+        self.data_group, self.model_group = data_group, model_group
+
+
+_MESH = _Mesh()
+
+
+def init_mesh(data: int, model: int = 1) -> None:
+    """Lays the process group out as a ``data`` x ``model`` mesh (global
+    rank d * model + m) and builds its subgroups; every rank calls it, in
+    the same order.  A mesh of the same extents is kept as it is."""
+    global _MESH
+    if data * model != world_size():
+        raise ValueError(f"{((data, model), world_size())}: a {data} x {model} "
+                         f"mesh needs {data * model} processes, the group "
+                         f"holds {world_size()}")
+    if (_MESH.data, _MESH.model) == (data, model):
+        return
+    if model == 1:
+        _MESH = _Mesh(data, 1)
+        return
+    backend = dist.get_backend()
+    me = rank()
+    data_group = model_group = None
+    # every rank creates every group, in one order (new_group's rule)
+    for m in range(model):
+        g = dist.new_group([d * model + m for d in range(data)], backend=backend)
+        if me % model == m:
+            data_group = g
+    for d in range(data):
+        g = dist.new_group([d * model + m for m in range(model)], backend=backend)
+        if me // model == d:
+            model_group = g
+    _MESH = _Mesh(data, model, data_group, model_group)
+
+
+def data_world() -> int:
+    """Processes on the ``data`` axis: the data-parallel degree."""
+    return world_size() if _MESH.model == 1 else _MESH.data
+
+
+def model_world() -> int:
+    """Processes on the ``model`` axis: the tensor-parallel degree."""
+    return _MESH.model
+
+
+def data_rank() -> int:
+    """This process's data coordinate: which rows of the global batch."""
+    return rank() // _MESH.model
+
+
+def model_rank() -> int:
+    """This process's model coordinate: which shard of the weights."""
+    return rank() % _MESH.model
+
+
+def data_group():
+    """The ranks of this process's model coordinate (None: the world)."""
+    return _MESH.data_group
+
+
+def model_group():
+    """The ranks of this process's data coordinate (None at model 1)."""
+    return _MESH.model_group
+
+
+def model_shard() -> ModelShard:
+    """This process's place on the model axis, as the model takes it."""
+    return ModelShard(model_rank(), model_world(), model_group())
+
+
 def is_main_process() -> bool:
     return rank() == 0
 
@@ -136,23 +224,31 @@ def _host_device() -> torch.device:
     return torch.device("cpu")
 
 
-def sum_across_ranks(x: torch.Tensor) -> torch.Tensor:
-    """The sum of ``x`` over the ranks (a new tensor, no gradient); ``x``
-    itself in one process."""
+def sum_across_ranks(x: torch.Tensor, group=None) -> torch.Tensor:
+    """The sum of ``x`` over the ranks of ``group`` (the world when None; a
+    new tensor, no gradient); ``x`` itself in one process."""
     if not dist.is_initialized():
         return x
     out = x.detach().clone()
-    dist.all_reduce(out)
+    dist.all_reduce(out, group=group)
     return out
 
 
-def all_reduce_mean_host(value: float) -> float:
-    """The mean of a host float over the ranks."""
-    if world_size() == 1:
+def sum_across_data(x: torch.Tensor) -> torch.Tensor:
+    """The sum of ``x`` over the data coordinates: over the ranks that hold
+    the other rows of the global batch."""
+    return sum_across_ranks(x, data_group())
+
+
+def all_reduce_mean_host(value: float, group=None) -> float:
+    """The mean of a host float over the ranks of ``group`` (the world when
+    None)."""
+    n = dist.get_world_size(group) if dist.is_initialized() else 1
+    if n == 1:
         return float(value)
     t = torch.tensor([float(value)], dtype=torch.float64, device=_host_device())
-    dist.all_reduce(t)
-    return float(t.item()) / world_size()
+    dist.all_reduce(t, group=group)
+    return float(t.item()) / n
 
 
 def broadcast_host(value, root: int = 0):

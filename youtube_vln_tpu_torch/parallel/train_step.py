@@ -30,7 +30,15 @@ batch's loss (``training/losses.py``, the counts summed over the ranks),
 scaled by the world size because DDP averages the gradients; the metrics
 are summed over the ranks, so ``loss/*`` are the global batch's losses
 and ``correct/*`` its counts; dropout masks are those of the global
-batch's rows (``models/layers.py:DropoutRng``).
+batch's rows (``models/layers.py:DropoutRng``).  Under a ``data`` x
+``model`` mesh (``distributed.init_mesh``) each of those is over the data
+axis alone: DDP runs over the ranks of this model coordinate, which hold
+the same shard of the weights, the loss is scaled by the data extent, the
+counts and metrics are summed over the data ranks (the model ranks of one
+data coordinate hold the same rows and compute the same values), the masks
+are those of the data coordinate's rows, and the gradients of the
+replicated embedding tables are averaged over the model ranks
+(``parallel/tensor.py:average_over_model``), so every replica stays equal.
 """
 from __future__ import annotations
 
@@ -45,6 +53,7 @@ from ..ops.philox import site_seed
 from ..training import losses as losses_lib
 from ..training.optimization import AdamWRef, make_schedule, param_groups
 from . import distributed
+from .tensor import average_over_model
 
 # static cap on target-carrying text positions per row (JAX
 # train_step.py:141-144): 32 of 60 is > 8 sigma above the 15% ladder
@@ -139,8 +148,9 @@ def loss_fn(model: torch.nn.Module, batch: Dict[str, torch.Tensor],
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """(total loss, metrics) of one batch on the device; train or eval as
     the model is set, ``seed`` the dropout seed of train mode, ``rank`` the
-    process's place in a data-parallel group and ``total_counts`` the sum
-    of the loss counts over it (``compute_task_losses``)."""
+    process's data coordinate (its place on the data axis) and
+    ``total_counts`` the sum of the loss counts over the data axis
+    (``compute_task_losses``)."""
     batch = expand_beam_steps(_expand_dedup(batch))
     flat = flatten_candidates(batch)
     instr_targets = _merge01(batch["instr_targets"])
@@ -207,7 +217,9 @@ def _check_model(model: torch.nn.Module, cfg, args: RunConfig,
 
 def data_parallel(model: torch.nn.Module, device: torch.device
                   ) -> torch.nn.Module:
-    """``model`` in ``DistributedDataParallel`` over the process group.
+    """``model`` in ``DistributedDataParallel`` over the data group (the
+    ranks of this model coordinate; on the default group DDP's first
+    broadcast would copy model rank 0's shards over the others').
     ``find_unused_parameters``, as the reference wraps it
     (``SURVEY.md:120``): a run that trains some heads leaves the others
     and the frozen prefixes without a gradient, and DDP then leaves their
@@ -219,13 +231,14 @@ def data_parallel(model: torch.nn.Module, device: torch.device
         ids = [device.index if device.index is not None
                else torch.cuda.current_device()]
     return DistributedDataParallel(model, device_ids=ids,
+                                   process_group=distributed.data_group(),
                                    find_unused_parameters=True)
 
 
 def _sum_metrics(metrics: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-    """The metrics summed over the ranks, in one collective."""
+    """The metrics summed over the data ranks, in one collective."""
     keys = list(metrics)
-    total = distributed.sum_across_ranks(
+    total = distributed.sum_across_data(
         torch.stack([metrics[k].float() for k in keys]))
     return dict(zip(keys, total))
 
@@ -247,10 +260,12 @@ def build_train_step(model: torch.nn.Module, cfg, args: RunConfig,
     tasks = _task_config(args, training=True)
     accum = args.gradient_accumulation_steps
     params = [p for p in model.parameters() if p.requires_grad]
+    synced = [p for p in params if getattr(p, "tp_sync", False)]
+    shard = getattr(model, "shard", None)
     grouped = torch.distributed.is_initialized()
-    world, rank = distributed.world_size(), distributed.rank()
+    world, rank = distributed.data_world(), distributed.data_rank()
     net = data_parallel(model, device) if grouped else model
-    total_counts = distributed.sum_across_ranks if grouped else None
+    total_counts = distributed.sum_across_data if grouped else None
 
     def step(batch, seed: int) -> Dict[str, torch.Tensor]:
         net.train()
@@ -264,10 +279,14 @@ def build_train_step(model: torch.nn.Module, cfg, args: RunConfig,
                     else contextlib.nullcontext())
             with sync:
                 loss, m = loss_fn(net, mb, tasks, mb_seed, rank, total_counts)
-                # DDP averages the gradients of the ranks' shares
+                # DDP averages the gradients of the data ranks' shares
                 (loss * world if world > 1 else loss).backward()
             for k, v in m.items():
                 metrics[k] = metrics[k] + v.detach() if k in metrics else v.detach()
+        if shard is not None:
+            # the replicated embedding tables, equal on every model rank
+            average_over_model([p.grad for p in synced if p.grad is not None],
+                               shard)
         if accum > 1:
             torch._foreach_div_([p.grad for p in params if p.grad is not None],
                                 float(accum))
@@ -289,11 +308,11 @@ def build_eval_step(model: torch.nn.Module, cfg, args: RunConfig,
     task) in eval mode, with the eval losses of test_epoch and val_epoch
     (reference utils_init.py:306-312, 382-410).  Under a process group the
     losses are this rank's shares of the global batch's and the counts its
-    own: the caller sums both over the ranks (``Engine.evaluate``)."""
+    own: the caller sums both over the data ranks (``Engine.evaluate``)."""
     device = resolve_device(device)
     _check_model(model, cfg, args, device)
     tasks = _task_config(args, training=False)
-    total_counts = (distributed.sum_across_ranks
+    total_counts = (distributed.sum_across_data
                     if torch.distributed.is_initialized() else None)
 
     def eval_step(batch) -> Dict[str, torch.Tensor]:

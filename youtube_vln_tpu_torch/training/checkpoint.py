@@ -32,6 +32,18 @@ data-parallel run together (each tensor once, the ranks sharing the
 writes).  ``load_checkpoint`` reads such a directory with or without a
 process group.  A JAX ``.orbax`` directory needs ``orbax``, which this
 package does not use: it is refused with the ``.bin`` to write instead.
+
+Under tensor parallelism (a ``Lily`` built with a ``ModelShard`` of M > 1)
+a ``.bin`` holds the full tensors: ``save_checkpoint`` gathers the weights
+and the moments over the model group (every model rank calls it, one of
+them writes), so the file is the one process's, in the reference layout
+and the JAX key set.  ``save_dcp`` keeps the shards: a tensor that the
+model axis shards is stored under ``<name>.shard<m>of<M>``, one key per
+model rank (plain tensors under one name on several ranks would be taken
+for replicas and written once).  Every load reads full tensors, from a
+``.bin`` or by joining a directory's shards, and cuts this model's shard
+(``models/weights.py:shard_state_dict``), so a checkpoint of any mesh
+loads onto any other.
 """
 from __future__ import annotations
 
@@ -39,6 +51,7 @@ import io
 import logging
 import os
 import pickle
+import re
 import shutil
 import tarfile
 import tempfile
@@ -47,8 +60,10 @@ from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 import torch
 
 from ..config import LilyConfig
-from ..models.weights import (_key_map, normalize_state_dict,
-                              state_dict_from_jax_params)
+from ..models.weights import (_key_map, full_shapes, normalize_state_dict,
+                              shard_state_dict, state_dict_from_jax_params)
+from ..parallel.mesh import param_spec
+from ..parallel.tensor import ModelShard, unshard_tensor
 
 logger = logging.getLogger(__name__)
 
@@ -107,14 +122,40 @@ def checkpoint_path(save_dir, save_name) -> str:
     return os.path.join(save_dir, f"{save_name}.bin")
 
 
+def _shard(model: torch.nn.Module) -> ModelShard:
+    return getattr(model, "shard", ModelShard())
+
+
+def _gathered(model: torch.nn.Module, tensors: Dict[str, torch.Tensor]
+              ) -> Dict[str, torch.Tensor]:
+    """``tensors`` (this rank's, keyed by state-dict name) made whole over
+    the model group, in one order on every rank (collective)."""
+    shard = _shard(model)
+    if shard.world == 1:
+        return tensors
+    shapes, extents = full_shapes(model.cfg), {"model": shard.world}
+    return {k: unshard_tensor(v, param_spec(k, shapes[k], extents), shard)
+            for k, v in tensors.items()}
+
+
+def _sharded(model: torch.nn.Module, full: Dict[str, torch.Tensor]
+             ) -> Dict[str, torch.Tensor]:
+    """This model's shard of the full tensors ``full``."""
+    shard = _shard(model)
+    if shard.world == 1:
+        return full
+    return shard_state_dict(full, {"model": shard.world}, shard.rank)
+
+
 def model_state_dict(model: torch.nn.Module, cfg: LilyConfig
                      ) -> Dict[str, torch.Tensor]:
     """The weights as the JAX ``params_to_state_dict`` exports them
     (``models/torch_io.py:172-203``), f32 on the host: the tied decoder
     weight is the word embedding's tensor, and the dead ``q_dense``
-    entries are zeros."""
+    entries are zeros.  Under a model axis the tensors are gathered
+    (collective over the model group)."""
     sd = {k: v.detach().to("cpu", torch.float32).contiguous()
-          for k, v in model.state_dict().items()}
+          for k, v in _gathered(model, model.state_dict()).items()}
     sd[_TIED] = sd["bert.embeddings.word_embeddings.weight"]
     for i in range(len(cfg.v_biattention_id)):
         p = f"bert.encoder.c_layer.{i}.biOutput"
@@ -134,7 +175,8 @@ def _flat_params(optimizer) -> List[torch.nn.Parameter]:
 def optimizer_state_by_name(model: torch.nn.Module, optimizer
                             ) -> Dict[str, Any]:
     """``step_count`` and the moments of ``optimizer`` (an ``AdamWRef``)
-    keyed by reference parameter names, f32 on the host."""
+    keyed by reference parameter names, f32 on the host; under a model
+    axis, gathered whole (collective over the model group)."""
     names = {id(p): n for n, p in model.named_parameters()}
     state = optimizer.state_dict()
     flat = _flat_params(optimizer)
@@ -142,20 +184,24 @@ def optimizer_state_by_name(model: torch.nn.Module, optimizer
                            "exp_avg": {}, "exp_avg_sq": {}}
     for i, moments in state["state"].items():
         for k in ("exp_avg", "exp_avg_sq"):
-            out[k][names[id(flat[i])]] = moments[k].detach().to(
-                "cpu", torch.float32).contiguous()
+            out[k][names[id(flat[i])]] = moments[k].detach()
+    for k in ("exp_avg", "exp_avg_sq"):
+        out[k] = {n: v.to("cpu", torch.float32).contiguous()
+                  for n, v in _gathered(model, out[k]).items()}
     return out
 
 
 def load_optimizer_state_by_name(model: torch.nn.Module, optimizer,
                                  state: Dict[str, Any]) -> None:
     """The inverse of ``optimizer_state_by_name``: moments of the names in
-    ``state``; a parameter absent there starts with none."""
+    ``state`` (full tensors, cut to this model's shard); a parameter absent
+    there starts with none."""
     index = {id(p): i for i, p in enumerate(_flat_params(optimizer))}
+    shards = {k: _sharded(model, state[k]) for k in ("exp_avg", "exp_avg_sq")}
     moments = {}
     for name, p in model.named_parameters():
-        if id(p) in index and name in state["exp_avg"]:
-            moments[index[id(p)]] = {k: state[k][name]
+        if id(p) in index and name in shards["exp_avg"]:
+            moments[index[id(p)]] = {k: shards[k][name]
                                      for k in ("exp_avg", "exp_avg_sq")}
     current = optimizer.state_dict()
     optimizer.load_state_dict({"state": moments,
@@ -177,14 +223,18 @@ def _from_jax_opt_state(blob: bytes, cfg: LilyConfig) -> Dict[str, Any]:
 
 def save_checkpoint(save_dir, save_name, model: torch.nn.Module,
                     cfg: LilyConfig, optimizer=None, step: int = 0,
-                    epoch: int = 0) -> str:
-    """Writes ``<save_dir>/<save_name>.bin`` and returns its path."""
+                    epoch: int = 0, write: bool = True) -> str:
+    """Writes ``<save_dir>/<save_name>.bin`` and returns its path.  Under a
+    model axis every model rank calls it (the gather is collective) and
+    the one with ``write`` writes."""
     path = checkpoint_path(save_dir, save_name)
     payload: Dict[str, Any] = {"model_state_dict": model_state_dict(model, cfg),
                                "epoch": int(epoch), "jax_step": int(step)}
     if optimizer is not None:
         payload["optimizer_state_dict"] = optimizer_state_by_name(model,
                                                                   optimizer)
+    if not write:
+        return path
     tmp = f"{path}.tmp"
     torch.save(payload, tmp)
     os.replace(tmp, path)
@@ -255,7 +305,7 @@ def load_checkpoint(path, model: torch.nn.Module, optimizer=None
         state = payload["model_state_dict"]
     else:
         state = {k: v for k, v in payload.items() if k not in _EXTRAS}
-    sd = normalize_state_dict(state)
+    sd = _sharded(model, normalize_state_dict(state))
 
     own = model.state_dict()
     missing: List[str] = []
@@ -336,45 +386,101 @@ def _moments(model: torch.nn.Module, optimizer) -> Dict[str, Dict]:
     return out
 
 
+def _storage(model: torch.nn.Module, prefix: str,
+             tensors: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """This rank's ``tensors`` under their names in a ``.dcp`` directory:
+    ``<prefix>.<name>``, or ``<prefix>.<name>.shard<m>of<M>`` for a tensor
+    that the model axis shards."""
+    shard = _shard(model)
+    shapes = full_shapes(model.cfg) if shard.world > 1 else {}
+    out = {}
+    for k, v in tensors.items():
+        key = f"{prefix}.{k}"
+        if k in shapes and param_spec(k, shapes[k], {"model": shard.world}) is not None:
+            key = f"{key}.shard{shard.rank}of{shard.world}"
+        out[key] = v
+    return out
+
+
 def save_dcp(save_dir, save_name, model: torch.nn.Module, optimizer=None,
              step: int = 0, epoch: int = 0) -> str:
     """Writes ``<save_dir>/<save_name>.dcp`` with
     ``torch.distributed.checkpoint`` and returns its path.  Under a process
-    group it is collective: every rank calls it with its replica."""
+    group it is collective: every rank calls it with its replica or its
+    shard."""
     import torch.distributed.checkpoint as dcp
 
     path = dcp_path(save_dir, save_name)
-    state: Dict[str, Any] = {"model": _weights(model),
+    state: Dict[str, Any] = {**_storage(model, "model", _weights(model)),
                              "step": torch.tensor(int(step)),
                              "epoch": torch.tensor(int(epoch))}
     if optimizer is not None:
-        state["optimizer"] = _moments(model, optimizer)
+        for k, moments in _moments(model, optimizer).items():
+            state.update(_storage(model, f"optimizer.{k}", moments))
         state["step_count"] = torch.tensor(int(optimizer.step_count))
     dcp.save(state, checkpoint_id=path)
     return path
 
 
+_SHARD_KEY = re.compile(r"^(.*)\.shard(\d+)of(\d+)$")
+
+
+def _full_from_dcp(path, meta, prefix: str, names, shapes, required: bool
+                   ) -> Dict[str, torch.Tensor]:
+    """The full tensors ``<prefix>.<name>`` of a ``.dcp`` directory, read
+    on the host, a sharded one joined from its shards; a name the
+    directory lacks raises when ``required`` and is left out otherwise."""
+    import torch.distributed.checkpoint as dcp
+
+    shards = {}
+    for key in meta:
+        m = _SHARD_KEY.match(key)
+        if m:
+            shards[m.group(1)] = int(m.group(3))
+    plan, buffers = {}, {}
+    for n in names:
+        key = f"{prefix}.{n}"
+        if key in meta:
+            plan[n] = [key]
+        elif key in shards:
+            plan[n] = [f"{key}.shard{i}of{shards[key]}"
+                       for i in range(shards[key])]
+        elif required:
+            raise KeyError(f"{path} holds no {key}")
+        for k in plan.get(n, ()):
+            buffers[k] = torch.empty(meta[k].size, dtype=meta[k].properties.dtype)
+    dcp.load(buffers, checkpoint_id=str(path))
+    out = {}
+    for n, keys in plan.items():
+        parts = [buffers[k] for k in keys]
+        dim = param_spec(n, shapes[n], {"model": len(parts)})
+        out[n] = parts[0] if len(parts) == 1 else torch.cat(parts, dim)
+    return out
+
+
 @torch.no_grad()
 def _load_dcp(path, model: torch.nn.Module, optimizer=None
               ) -> Tuple[List[str], List[str], int, int]:
-    """``load_checkpoint`` of a ``save_dcp`` directory: every weight is
-    read in place (none may be missing); with ``optimizer`` the moments and
-    ``step_count`` too, where the directory has them."""
+    """``load_checkpoint`` of a ``save_dcp`` directory of any mesh: every
+    weight is read whole (none may be missing) and cut to this model's
+    shard; with ``optimizer`` the moments and ``step_count`` too, where the
+    directory has them."""
     import torch.distributed.checkpoint as dcp
 
-    stored = set(dcp.FileSystemReader(str(path)).read_metadata()
-                 .state_dict_metadata)
-    state: Dict[str, Any] = {"model": _weights(model),
-                             "step": torch.tensor(0), "epoch": torch.tensor(0)}
-    with_moments = optimizer is not None and "step_count" in stored
-    if with_moments:
-        state["step_count"] = torch.tensor(0)
-        state["optimizer"] = {
-            k: {n: torch.zeros_like(p) for n, p in model.named_parameters()
-                if f"optimizer.{k}.{n}" in stored}
-            for k in ("exp_avg", "exp_avg_sq")}
-    dcp.load(state, checkpoint_id=str(path))
-    if with_moments:
+    meta = dcp.FileSystemReader(str(path)).read_metadata().state_dict_metadata
+    shapes = full_shapes(model.cfg)
+    own = _weights(model)
+    full = _full_from_dcp(path, meta, "model", own, shapes, required=True)
+    for k, v in _sharded(model, full).items():
+        own[k].copy_(v)
+    scalars = {k: torch.tensor(0) for k in ("step", "epoch", "step_count")
+               if k in meta}
+    dcp.load(scalars, checkpoint_id=str(path))
+    if optimizer is not None and "step_count" in meta:
+        names = [n for n, _ in model.named_parameters()]
         load_optimizer_state_by_name(model, optimizer, {
-            "step_count": int(state["step_count"]), **state["optimizer"]})
-    return [], [], int(state["step"]), int(state["epoch"])
+            "step_count": int(scalars["step_count"]),
+            **{k: _full_from_dcp(path, meta, f"optimizer.{k}", names, shapes,
+                                 required=False)
+               for k in ("exp_avg", "exp_avg_sq")}})
+    return [], [], int(scalars["step"]), int(scalars["epoch"])

@@ -17,12 +17,16 @@ Replaces the reference's ``utils/dataset/dataset_init.py`` (loader wiring),
   * an optional ``torch.profiler`` trace of steps 2-8 of the first epoch,
     one per rank
 
-Under a process group of W ranks ``--batch_size`` stays the global batch:
-each rank loads ``batch // accum // W`` rows per micro-step from its shard
-of the data (``Loader(num_shards=W, shard=rank)``), the step's losses and
+Under a process group of W ranks ``--batch_size`` stays the global batch,
+and ``--mesh_shape D M`` lays the ranks out as D data x M model
+coordinates (D x M = W; the default is W x 1): each rank loads ``batch //
+accum // D`` rows per micro-step from its data coordinate's shard of the
+data (``Loader(num_shards=D, shard=data_rank)``; the M model ranks of a
+coordinate load the same rows), the model holds this rank's shard of the
+weights on the model axis (``Lily(..., shard=...)``), the step's losses and
 metrics are those of the global batch (``parallel/train_step.py``), and
-``evaluate`` sums its totals over the ranks, so every rank returns the
-same dict.
+``evaluate`` sums its totals over the data ranks, so every rank returns
+the same dict.
 """
 from __future__ import annotations
 
@@ -180,7 +184,10 @@ class Engine:
         # the log and the writer (set by the entries) are rank 0's alone
         self.log = (run_logger or logger) if self.rank == 0 else NoneLogger()
         self.writer = None
-        mesh_extents(args.mesh_shape, args.mesh_axes, self.world)
+        extents = mesh_extents(args.mesh_shape, args.mesh_axes, self.world)
+        distributed.init_mesh(extents["data"], extents.get("model", 1))
+        self.data_world, self.data_rank = (distributed.data_world(),
+                                           distributed.data_rank())
         self.tokenizer = resolve_tokenizer(args)
 
         # datasets ------------------------------------------------------- #
@@ -208,13 +215,14 @@ class Engine:
                     self.val_unseen_ds = _maybe_subset(self.val_unseen_ds, 4)
 
         # args.batch_size is the global batch (dataset_init.py:204-208):
-        # each rank loads batch // accum // world rows per micro-step from
-        # its shard, and the ranks' rows make the global batch
+        # each data coordinate loads batch // accum // data_world rows per
+        # micro-step from its shard, and their rows make the global batch
         accum = args.gradient_accumulation_steps
-        self.step_batch = max(1, args.batch_size // accum // self.world)
+        self.step_batch = max(1, args.batch_size // accum // self.data_world)
         self.train_loader = Loader(self.train_ds, self.step_batch * accum,
                                    shuffle=True, seed=args.seed,
-                                   num_shards=self.world, shard=self.rank,
+                                   num_shards=self.data_world,
+                                   shard=self.data_rank,
                                    prefetch=args.host_prefetch,
                                    num_workers=args.num_workers)
         self.eval_loaders = {}
@@ -224,14 +232,15 @@ class Engine:
             if ds is not None:
                 self.eval_loaders[name] = Loader(
                     ds, self.step_batch, shuffle=False, seed=args.seed,
-                    num_shards=self.world, shard=self.rank,
+                    num_shards=self.data_world, shard=self.data_rank,
                     drop_last=False, prefetch=args.host_prefetch,
                     num_workers=args.num_workers)
 
         # model / optimizer ---------------------------------------------- #
-        self.model = Lily(model_cfg, device=self.device).init_weights(args.seed)
+        self.model = Lily(model_cfg, device=self.device,
+                          shard=distributed.model_shard()).init_weights(args.seed)
         n_params = sum(p.numel() for p in self.model.parameters())
-        self.log.info(f"number of parameters: {n_params:,}")
+        self.log.info(f"number of parameters on this rank: {n_params:,}")
         self.optimizer, self.schedule = ts.create_train_state(
             self.model, args, steps_per_epoch=len(self.train_loader))
         self.start_epoch = 0
@@ -344,10 +353,10 @@ class Engine:
         """test_epoch / val_epoch equivalent: per-task loss averaged over
         batches and accuracy = correct / samples over a split (reference
         utils_init.py:315-446).  Under a process group the batches are the
-        global batches of the ranks' shards (a split that the world does
-        not divide is wrap-padded, as ``shard_indices`` pads it): the sums
-        and the sample count are summed over the ranks once, and every rank
-        returns the same dict."""
+        global batches of the data ranks' shards (a split that the data
+        extent does not divide is wrap-padded, as ``shard_indices`` pads
+        it): the sums and the sample count are summed over the data ranks
+        once, and every rank returns the same dict."""
         loader = self.eval_loaders[name]
         n_batches = 0
         n_samples = 0
@@ -362,7 +371,7 @@ class Engine:
         keys = sorted(acc)
         totals = torch.stack([acc[k].float() for k in keys]
                              + [torch.tensor(float(n_samples), device=self.device)])
-        *vals, n_samples = distributed.sum_across_ranks(totals).tolist()
+        *vals, n_samples = distributed.sum_across_data(totals).tolist()
         out: Dict[str, float] = {}
         for k, v in zip(keys, vals):
             if k.startswith("loss/"):
@@ -381,7 +390,8 @@ class Engine:
     # -------------------------------------------------------------------- #
     def save(self, save_name, epoch: int) -> str:
         """Saves the model and the optimizer; returns the path.  Every rank
-        calls it: the ``.bin`` is written by rank 0 alone, a
+        calls it: the ``.bin`` is written by rank 0 alone, from the tensors
+        that the model ranks of data coordinate 0 gather together, a
         ``--orbax_checkpoints`` directory by all of them together."""
         assert self.save_folder is not None
         self.save_folder.mkdir(parents=True, exist_ok=True)
@@ -389,12 +399,12 @@ class Engine:
             return ckpt.save_dcp(self.save_folder, save_name, self.model,
                                  optimizer=self.optimizer,
                                  step=self.optimizer.step_count, epoch=epoch)
-        if self.rank != 0:
+        if self.data_rank != 0:
             return ckpt.checkpoint_path(self.save_folder, save_name)
         return ckpt.save_checkpoint(
             self.save_folder, save_name, self.model, self.cfg,
             optimizer=self.optimizer, step=self.optimizer.step_count,
-            epoch=epoch)
+            epoch=epoch, write=self.rank == 0)
 
     def close(self):
         if self.reader is not None:

@@ -10,9 +10,10 @@ host.
 
 Each task loss is a sum over its terms divided by their count (``*_terms``
 return the two).  Under data parallelism ``compute_task_losses`` takes
-``total_counts``, which sums the counts over the ranks, so each rank's loss
-is its share of the global batch's loss: the global sum over the global
-count, as the JAX package computes it on its global arrays
+``total_counts``, which sums the counts over the data ranks (the ranks
+that hold the other rows; under a model axis the model ranks of one data
+coordinate hold the same rows), so each rank's loss is its share of the
+global batch's loss: the global sum over the global count, as the JAX package computes it on its global arrays
 (``losses.py:47,73,87,98-99,120,155``).  The reference instead averages
 per-rank means (``SURVEY.md:434``); the two differ whenever ranks hold
 different counts, as the masked tasks do in almost every batch.

@@ -5,8 +5,9 @@ defaults, so the published recipes (README.md:103-183) run unchanged;
 ``--device`` defaults to ``cuda`` and takes ``cpu`` on request.  Parsed
 args fold into one :class:`~youtube_vln_tpu_torch.config.RunConfig`;
 ``--no_pallas`` maps to ``use_attention_kernels=False``.
-``--mesh_shape`` / ``--mesh_axes`` name the data-parallel axis
-(``parallel/mesh.py`` refuses a ``model`` axis above 1) and
+``--mesh_shape`` / ``--mesh_axes`` name the ``data`` and ``model`` axes
+(``parallel/mesh.py``: data parallelism and tensor parallelism; the
+Engine refuses a shape whose product is not the world size) and
 ``--orbax_checkpoints`` saves ``torch.distributed.checkpoint`` directories.
 The flag of the JAX package with no counterpart here yet
 (``--compilation_cache_dir``) is refused unless left at its default.
@@ -212,7 +213,7 @@ def args_to_run_config(args: argparse.Namespace) -> RunConfig:
         if (list(value) if isinstance(value, (list, tuple)) else value) != default:
             raise ValueError(f"--{name} {value!r}: not ported to this package "
                              f"yet; ROADMAP.md Queue A item {item} ports it")
-    # the data axis is resolved against the world size by the Engine
+    # the shape is resolved against the world size by the Engine
     mesh_extents(args.mesh_shape, args.mesh_axes)
     fields = {f.name for f in dataclasses.fields(RunConfig)}
     kv = {}
