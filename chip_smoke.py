@@ -125,10 +125,41 @@ Phases, each fatal on failure:
      6 launches of B1-B4 and 24 of B5/B6 per micro-step per rank, every B5
      output bitwise equal on the two ranks; prints a ``tp`` JSON line (gloo
      times, not a speed number);
- 16. a ``kernels`` JSON line: per kernel its launches on the eval, the
+ 16a. the legacy ViLBERT heads at full width: ``BertForMultiModalPreTraining``
+     and ``VILBertForVLTasks`` with ``SimpleClassifier(1024, 2048, 3129)``
+     (``lily_base_config``, random weights from the seed, bf16) on 32 rows x
+     (60 + 808) tokens: an eval forward of each, 6 + 6 launches of B1/B2 per
+     call, and a train-mode forward and backward of each at dropout 0.1, 6
+     launches of each of B1-B4 per call; the eval outputs against
+     ``plain_launchers()`` (the classifier's argmax equal outside ties, the
+     bf16 error against the f32 plain path at most twice the plain path's,
+     f32 within 1e-4) and the f32 train-mode gradients at 8 rows within
+     1e-3 relative L2; prints a ``legacy`` JSON line;
+ 16. the offline dataset pipeline at full width on 2 synthetic videos x 48
+     frames of 720 x 1280 (a 720p house tour at 1 fps, cut in frames only),
+     f32, random weights from the seed: 5a ``run_indoor_filter``
+     (WideResNet-18 Places365, batch 64), 5b ``run_maskrcnn_filter``
+     (AlexNet Places365, batch 32; Mask R-CNN R50-FPN at min 800 / max
+     1333, 749 x 1333 padded to 768 x 1344), 6 ``build_clip_tsv``
+     (ViT-B/32, batch 64), text features of seeded token ids and
+     ``clip_captions.run``, 7-8 ``encode_frames``, 20 Adam steps of the
+     inverse head at batch 32, ``predict_actions`` and
+     ``write_action_profiles``, 3-4 ``run_extraction`` (seeded stand-in
+     detector) and ``convert_tsv_to_store``, 9-10 the records, photo merging,
+     the frozen testset and a Loader batch of the port's ``YTbDataset``;
+     fatal: a non-finite output, an artifact not read back, an inverse-head
+     loss that does not fall, and for 2 frames per model a card output
+     (Places365 logits, layer4 and pooled; AlexNet logits; the FPN levels,
+     the RPN outputs and the box head on the same proposals; CLIP image and
+     text features; the head's logits) off the same port code on the CPU by
+     more than 1e-4 of the CPU output's largest value; prints a ``pipeline``
+     JSON line (frames/s per stage, Mask R-CNN device and host ms per frame,
+     the head's ms per step, peak memory, the phase's seconds);
+ 17. a ``kernels`` JSON line: per kernel its launches on the eval, the
      fine-tuning, the pretraining, the test entry (run A), the train entry,
-     the pretrain entry, the data-parallel (phase 14 b and c, every rank)
-     and the tensor-parallel (phase 15 b and c, every rank) paths, error,
+     the pretrain entry, the data-parallel (phase 14 b and c, every rank),
+     the tensor-parallel (phase 15 b and c, every rank) and the legacy-head
+     (phase 16a) paths, error,
      time, bound, plain time
      and a library call's time at the train shapes (B1/B2 also at the eval
      shapes, B5/B6 at the pretraining shape); B1-B4 also carry the bf16
@@ -2823,6 +2854,543 @@ def tp_path(seed, root, common, pre_paths, pre_data_dir):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 16a: the legacy ViLBERT heads at full width
+# ---------------------------------------------------------------------------
+LEGACY_ROWS = 32                   # rows x (60 text + 808 visual tokens)
+LEGACY_GRAD_ROWS = 8               # rows of the f32 gradient check
+VQA_LABELS, VQA_HIDDEN = 3129, 2048  # SimpleClassifier(1024, 2048, 3129)
+LEGACY_SEED = 0x1E6                # dropout seed of the train-mode runs
+
+
+def legacy_batch(rng, n, vocab):
+    """n rows of 60 text tokens (the last 12 padded on odd rows) and 808
+    visual tokens (8 steps x 101 boxes, ~10% masked)."""
+    import numpy as np
+    s_v = L * BOXES
+    tokens = rng.integers(1, vocab, size=(n, S_T)).astype(np.int64)
+    t_mask = np.ones((n, S_T), np.int64)
+    t_mask[1::2, S_T - 12:] = 0
+    segments = np.zeros((n, S_T), np.int64)
+    feats = rng.normal(size=(n, s_v, FEAT)).astype(np.float32)
+    locs = rng.random(size=(n, s_v, 12)).astype(np.float32)
+    locs[..., 11] = np.repeat(np.arange(L), BOXES)[None]
+    v_mask = (rng.random((n, s_v)) < 0.9).astype(np.int64)
+    v_mask[:, ::BOXES] = 1
+    return tokens, feats, locs, segments, t_mask, v_mask
+
+
+def legacy_path(seed):
+    """Phase 16a: ``BertForMultiModalPreTraining`` and ``VILBertForVLTasks``
+    (``lily_base_config``, random weights from the seed, bf16) on 32 rows x
+    (60 + 808) tokens: an eval forward of each (6 + 6 launches of B1/B2 per
+    call) and a train-mode forward and backward of each at dropout 0.1 (6
+    launches of each of B1-B4 per call); the eval outputs against
+    ``plain_launchers()`` (the same argmax of the classifier; in bf16 the
+    error against the f32 plain path at most twice the plain path's; in
+    f32 within 1e-4) and the f32 train-mode gradients at 8 rows within
+    1e-3 relative L2.  Returns the launches of the two runs."""
+    import numpy as np
+    import torch
+    from youtube_vln_tpu_torch import lily_base_config
+    from youtube_vln_tpu_torch.models.legacy import (BertForMultiModalPreTraining,
+                                                     VILBertForVLTasks)
+    from youtube_vln_tpu_torch.ops import attention as A
+
+    cfg = lily_base_config(compute_dtype="bfloat16")
+    torch.cuda.reset_peak_memory_stats()
+    pre = BertForMultiModalPreTraining(cfg).init_weights(seed).eval()
+    vl = VILBertForVLTasks(cfg, VQA_LABELS, VQA_HIDDEN).init_weights(seed + 1).eval()
+    batch = [torch.from_numpy(x).cuda() for x in
+             legacy_batch(np.random.default_rng(seed), LEGACY_ROWS, cfg.vocab_size)]
+    names = ("mlm", "vision", "seq_relationship", "vl_logits")
+
+    def outputs(dtype="bfloat16", plain=False):
+        cfg.compute_dtype = dtype
+        try:
+            with torch.inference_mode(), (plain_launchers() if plain
+                                          else contextlib.nullcontext()):
+                return [*pre(*batch), vl(*batch)]
+        finally:
+            cfg.compute_dtype = "bfloat16"
+
+    outputs()                                            # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    kernel = outputs()
+    torch.cuda.synchronize()
+    eval_ms = (time.perf_counter() - t0) * 1e3
+    launches_eval = counts()
+    print(f"launches on the legacy heads' eval path (2 calls): {launches_eval}")
+    for name, per in (("attention_fwd", cfg.v_num_hidden_layers),
+                      ("bi_attention_fwd", len(cfg.v_biattention_id))):
+        if launches_eval[name] != 2 * per:
+            fail(f"legacy eval: {name} launched {launches_eval[name]} times, "
+                 f"expected {per} x 2")
+    if any(launches_eval[n] for n in ("attention_bwd", "bi_attention_bwd",
+                                      "epilogue_fwd", "epilogue_bwd")):
+        fail(f"legacy eval: a backward or epilogue kernel launched: {launches_eval}")
+    shapes = [(LEGACY_ROWS, S_T, cfg.vocab_size), (LEGACY_ROWS, L * BOXES, cfg.v_target_size),
+              (LEGACY_ROWS, 2), (LEGACY_ROWS, VQA_LABELS)]
+    for name, o, shape in zip(names, kernel, shapes):
+        if tuple(o.shape) != shape or o.dtype != torch.float32:
+            fail(f"legacy {name}: {tuple(o.shape)} {o.dtype}, expected {shape} float32")
+
+    plain = outputs(plain=True)
+    exact = outputs("float32", plain=True)
+    errors = {}
+    for name, k32, p32 in zip(names, outputs("float32"), exact):
+        errors[f"{name}_f32"] = check(f"legacy {name}, kernel vs plain path, f32", k32,
+                                      p32, 1e-4)
+    for name, k, p, e in zip(names, kernel, plain, exact):
+        k_err = float((k - e).abs().max())
+        p_err = float((p - e).abs().max())
+        errors[f"{name}_bf16"] = k_err
+        print(f"check legacy {name}, bf16 against f32: kernel {k_err:.3e} (tol "
+              f"{2 * p_err:.3e} = 2 x plain {p_err:.3e})")
+        if not (torch.isfinite(k).all() and k_err <= 2 * p_err):
+            fail(f"legacy {name}: the kernel path's bf16 error exceeds twice the plain path's")
+    k, p = kernel[3], plain[3]
+    path_err = float((k - p).abs().max())
+    top2 = p.topk(2, dim=-1).values
+    differ = k.argmax(-1) != p.argmax(-1)
+    if bool((differ & (top2[:, 0] - top2[:, 1] > 2 * path_err)).any()):
+        fail("legacy VL classifier: argmax differs between the kernel and plain paths")
+    print(f"legacy VL classifier argmax: {int((~differ).sum())} of {LEGACY_ROWS} rows equal "
+          f"(the others within a tie of 2 x {path_err:.2e})")
+    del kernel, plain, exact
+
+    # train mode at dropout 0.1: forward and backward of each head
+    pre.train()
+    vl.train()
+
+    def loss_of(outs):
+        outs = outs if isinstance(outs, (tuple, list)) else [outs]
+        return sum(o.float().square().mean() for o in outs)
+
+    for m in (pre, vl):                                  # warm-up
+        loss_of(m(*batch, seed=LEGACY_SEED)).backward()
+        m.zero_grad(set_to_none=True)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    for m in (pre, vl):
+        loss_of(m(*batch, seed=LEGACY_SEED)).backward()
+    torch.cuda.synchronize()
+    train_ms = (time.perf_counter() - t0) * 1e3
+    launches_train = counts()
+    check_launches(cfg, launches_train, 2, "legacy heads' train path")
+    for m in (pre, vl):
+        for n, prm in m.named_parameters():
+            if prm.grad is not None and not bool(torch.isfinite(prm.grad).all()):
+                fail(f"legacy train: non-finite gradient of {n}")
+        m.zero_grad(set_to_none=True)
+
+    small = [t[:LEGACY_GRAD_ROWS] for t in batch]
+    grad_err = {}
+    for tag, m in (("pretraining", pre), ("vl_tasks", vl)):
+        params = [prm for prm in m.parameters() if prm.requires_grad]
+
+        def grads(plain):
+            cfg.compute_dtype = "float32"
+            A.reset_launch_counts()
+            try:
+                with plain_launchers() if plain else contextlib.nullcontext():
+                    g = torch.autograd.grad(loss_of(m(*small, seed=LEGACY_SEED)), params,
+                                            allow_unused=True)
+            finally:
+                cfg.compute_dtype = "bfloat16"
+            what = f"legacy {tag} gradient check ({'plain' if plain else 'kernel'} path)"
+            if plain and any(A.LAUNCHES.values()):
+                fail(f"{what}: kernels launched: {dict(A.LAUNCHES)}")
+            if not plain:
+                check_launches(cfg, dict(A.LAUNCHES), 1, what)
+            return [torch.zeros_like(q) if x is None else x for q, x in zip(params, g)]
+
+        gk, gp = grads(False), grads(True)
+        num = sum(float(((a - b) ** 2).sum()) for a, b in zip(gk, gp))
+        den = sum(float((b ** 2).sum()) for b in gp)
+        grad_err[tag] = (num / den) ** 0.5
+        print(f"check legacy {tag} gradients, f32, dropout 0.1, kernel vs plain path: "
+              f"relative L2 {grad_err[tag]:.3e} (tol 1e-3)")
+        if not grad_err[tag] <= 1e-3:
+            fail(f"legacy {tag}: kernel and plain gradients disagree")
+        del gk, gp
+    print(json.dumps({
+        "legacy": "BertForMultiModalPreTraining + VILBertForVLTasks(3129), "
+                  "lily_base_config, bf16, 32 x (60 + 808) tokens",
+        "eval_ms_both_heads": eval_ms, "train_fwd_bwd_ms_both_heads": train_ms,
+        "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+        "max_abs_err": errors, "grad_rel_l2_f32": grad_err,
+        "launches_eval": launches_eval, "launches_train": launches_train}))
+    del pre, vl, batch, small
+    torch.cuda.empty_cache()
+    return {n: launches_eval[n] + launches_train[n] for n in launches_eval}
+
+
+# ---------------------------------------------------------------------------
+# phase 16: the offline dataset pipeline's models at full width
+# ---------------------------------------------------------------------------
+PIPE_VIDEOS, PIPE_FRAMES, PIPE_H, PIPE_W = 2, 48, 720, 1280  # 720p tours at 1 fps
+PIPE_HEAD_STEPS, PIPE_HEAD_BATCH = 20, 32
+PIPE_CPU_FRAMES = 2                # frames per model held against the CPU
+PIPE_KEYFRAME_EVERY = 4
+
+
+def load_frame(path):
+    """The phase's image loader (PIL is absent on the card machine): the
+    frames are ``np.save`` arrays under ``####.jpg`` names."""
+    import numpy as np
+    return np.load(path)
+
+
+def write_pipeline_frames(root, rng):
+    """PIPE_VIDEOS folders of PIPE_FRAMES uint8 720 x 1280 RGB frames; the
+    frame after a camera action is brightened by 50 x the action (0-2), so
+    the inverse head has something to learn.  Returns the actions."""
+    import numpy as np
+    actions = {}
+    for v in range(PIPE_VIDEOS):
+        vid = f"video{v}"
+        d = root / vid
+        d.mkdir(parents=True)
+        base = rng.integers(0, 150, (PIPE_H, PIPE_W, 3), dtype=np.uint8)
+        acts = rng.integers(0, 3, PIPE_FRAMES - 1)
+        for i in range(PIPE_FRAMES):
+            frame = np.roll(base, 16 * i, axis=1) + np.uint8(50 * (acts[i - 1] if i else 0))
+            with open(d / ("%04d.jpg" % (i + 1)), "wb") as f:
+                np.save(f, frame)
+        actions[vid] = acts
+    return actions
+
+
+def cpu_copy(model, make):
+    """``make(device="cpu")`` loaded with ``model``'s weights."""
+    twin = make(device="cpu")
+    twin.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    return twin
+
+
+def cpu_check(errors, key, what, got, want):
+    """A card output against the same port code on the CPU: max |card -
+    CPU| within 1e-4 of the CPU output's largest value; records the ratio."""
+    scale = float(want.float().abs().max())
+    err = check(f"pipeline {what}, card vs CPU", got, want.to(got.device), 1e-4,
+                floor=0.0, verbose=False)
+    errors[key] = err / scale if scale else err
+    return errors[key]
+
+
+def pipeline_path(seed):
+    """Phase 16: steps 3-10 of the dataset recipe on 2 synthetic videos x
+    48 frames of 720 x 1280 (a 720p house tour at 1 fps), every model at
+    its published width with random weights from the seed, f32: 5a
+    ``run_indoor_filter`` (WideResNet-18 Places365, batch 64), 5b
+    ``run_maskrcnn_filter`` (AlexNet Places365, batch 32, and Mask R-CNN
+    R50-FPN at min 800 / max 1333), 6 ``build_clip_tsv`` (ViT-B/32, batch
+    64), text features of seeded token ids and ``clip_captions.run``, 7-8
+    ``encode_frames``, 20 Adam steps of the inverse head at batch 32,
+    ``predict_actions``, ``write_action_profiles``, 3-4 ``run_extraction``
+    and ``convert_tsv_to_store``, 9-10 the records, photo merging, the
+    frozen testset and a Loader batch of the port's ``YTbDataset``.  Fatal:
+    a non-finite output, an artifact not read back, a head loss that does
+    not fall, a card output off the same code on the CPU by more than 1e-4
+    of its largest value (2 frames per model)."""
+    import numpy as np
+    import torch
+    from youtube_vln_tpu_torch.config import RunConfig
+    from youtube_vln_tpu_torch.data.datasets import YTbDataset
+    from youtube_vln_tpu_torch.data.features_reader import YTbFeaturesReader
+    from youtube_vln_tpu_torch.data.fixtures import write_fixture_vocab
+    from youtube_vln_tpu_torch.data.loader import Loader
+    from youtube_vln_tpu_torch.data.store import Store
+    from youtube_vln_tpu_torch.pipeline import (build_dataset, clip_captions, clip_model,
+                                                detector, extraction, filters,
+                                                inverse_action, maskrcnn, merge_photos,
+                                                places365)
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(seed)
+    root = Path(tempfile.mkdtemp(prefix="pipeline_"))
+    frames_dir = root / "raw_frames"
+    true_actions = write_pipeline_frames(frames_dir, rng)
+    vids = sorted(true_actions)
+    n_frames = PIPE_VIDEOS * PIPE_FRAMES
+    torch.cuda.reset_peak_memory_stats()
+    stage_s, errors = {}, {}
+
+    def timed(stage, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        stage_s[stage] = time.perf_counter() - t0
+        return out
+
+    def frames_of(vid):
+        return np.stack([load_frame(p) for p in sorted((frames_dir / vid).glob("*.jpg"))])
+
+    def finite(name, x):
+        if not np.isfinite(np.asarray(x, np.float64)).all():
+            fail(f"pipeline {name}: non-finite values")
+
+    two = frames_of(vids[0])[:PIPE_CPU_FRAMES]
+
+    # 5a: WideResNet-18 Places365 (every class indoor: the vote keeps every
+    # frame, so the chain below has frames whatever the random weights say)
+    wrn = places365.WideResNet18(365).init_weights(seed)
+    labels_io = np.zeros(365)
+    wrn_cpu = cpu_copy(wrn, lambda device: places365.WideResNet18(365, device=device))
+    with torch.inference_mode():
+        got = places365.places_forward(wrn, places365.preprocess_images(two))
+        want = places365.places_forward(wrn_cpu, places365.preprocess_images(two, device="cpu"))
+    for name, g, w in zip(("logits", "layer4", "pooled"), got, want):
+        cpu_check(errors, f"places_{name}", f"Places365 {name}", g, w)
+    n = timed("5a_indoor_filter", lambda: filters.run_indoor_filter(
+        frames_dir, root / "indoor_frames", wrn, labels_io, image_loader=load_frame,
+        batch_size=64))
+    indoor_by_video = {}
+    for vid in vids:
+        rows = (root / "indoor_frames" / vid / "indoor.tsv").read_text().splitlines()
+        indoor_by_video[vid] = [int(r.split("\t")[1]) for r in rows]
+        if len(rows) != PIPE_FRAMES or not (root / "indoor_frames" / vid
+                                            / "indoor_order.tsv").exists():
+            fail(f"5a: {vid}: {len(rows)} indoor rows, expected {PIPE_FRAMES}")
+    if n != PIPE_VIDEOS:
+        fail(f"5a: {n} videos")
+
+    # 5b: AlexNet Places365 + Mask R-CNN R50-FPN.  Held against the CPU
+    # first; then its last layer is scaled by 0.01 and the biases of 5
+    # indoor classes raised by 8, so they take the top of the softmax, the
+    # top-10 indoor mass passes the vote and the chain below keeps frames
+    alex = places365.AlexNet(365).init_weights(seed + 1)
+    alex_cpu = cpu_copy(alex, lambda device: places365.AlexNet(365, device=device))
+    with torch.inference_mode():
+        cpu_check(errors, "alexnet_logits", "AlexNet logits",
+                  alex(places365.preprocess_images_crop(two)),
+                  alex_cpu(places365.preprocess_images_crop(two, device="cpu")))
+    del alex_cpu
+    is_indoor = rng.random(365) < 0.5
+    with torch.no_grad():
+        alex.classifier[6].weight.mul_(0.01)
+        alex.classifier[6].bias[torch.from_numpy(np.flatnonzero(is_indoor)[:5]).cuda()] += 8.0
+    det = maskrcnn.MaskRCNNDetector(maskrcnn.MaskRCNN().init_weights(seed + 2))
+    det_cpu = maskrcnn.MaskRCNNDetector(cpu_copy(det.model, maskrcnn.MaskRCNN),
+                                        device="cpu")
+    for i, img in enumerate(two):
+        with torch.inference_mode():
+            x, hw, _ = det._preprocess(img, True)
+            x_cpu, _, _ = det_cpu._preprocess(img, True)
+            feats = maskrcnn.backbone_fpn(det.model, x[None])
+            feats_cpu = maskrcnn.backbone_fpn(det_cpu.model, x_cpu[None])
+            levels = maskrcnn.rpn_head(det.model, feats)
+            levels_cpu = maskrcnn.rpn_head(det_cpu.model, feats_cpu)
+            for lvl, (f, fc, (o, d), (oc, dc)) in enumerate(zip(feats, feats_cpu, levels,
+                                                                 levels_cpu)):
+                cpu_check(errors, f"fpn_p{lvl + 2}_{i}", f"FPN P{lvl + 2}", f, fc)
+                cpu_check(errors, f"rpn_obj_p{lvl + 2}_{i}", f"RPN objectness P{lvl + 2}",
+                          o, oc)
+                cpu_check(errors, f"rpn_deltas_p{lvl + 2}_{i}", f"RPN deltas P{lvl + 2}",
+                          d, dc)
+            proposals = det._proposals([(o.cpu(), d.cpu()) for o, d in levels], hw,
+                                       tuple(x.shape[1:]))
+            cls_g, box_g = maskrcnn.box_head(det.model, det._pool(feats, proposals))
+            cls_c, box_c = maskrcnn.box_head(det_cpu.model, det_cpu._pool(feats_cpu, proposals))
+        cpu_check(errors, f"box_logits_{i}", "box-head logits", cls_g, cls_c)
+        cpu_check(errors, f"box_deltas_{i}", "box-head deltas", box_g, box_c)
+        print(f"pipeline Mask R-CNN frame {i}, {len(proposals)} proposals, card vs CPU: "
+              f"largest error / largest value {max(errors.values()):.3e} (tol 1e-4)")
+    del det_cpu
+    det_times = []
+    real_detect = det.detect
+
+    def detect(image, resize=True):
+        out = real_detect(image, resize)
+        det_times.append(det.last_timing)
+        finite("Mask R-CNN boxes", out["boxes"])
+        return out
+
+    det.detect = detect
+    n = timed("5b_maskrcnn_filter", lambda: filters.run_maskrcnn_filter(
+        frames_dir, root / "maskrcnn", alex, is_indoor, det, image_loader=load_frame,
+        batch_size=32))
+    maskrcnn_by_video = {vid: filters.load_maskrcnn_filters(root / "maskrcnn" / vid
+                                                            / f"{vid}.json") for vid in vids}
+    if n != PIPE_VIDEOS or any(set(m) != {"indoor_locs", "person_locs"}
+                               for m in maskrcnn_by_video.values()):
+        fail(f"5b: {n} videos, artifacts {maskrcnn_by_video}")
+
+    # 6: CLIP ViT-B/32 frame features, prompt features of seeded token ids
+    clip = clip_model.ClipModel().init_weights(seed + 3)
+    clip_cpu = cpu_copy(clip, clip_model.ClipModel)
+    with torch.inference_mode():
+        cpu_check(errors, "clip_image", "CLIP image features",
+                  clip_model.clip_image_features(clip, clip_model.preprocess_images(two)),
+                  clip_model.clip_image_features(
+                      clip_cpu, clip_model.preprocess_images(two, device="cpu")))
+    n = timed("6_clip_tsv", lambda: clip_model.build_clip_tsv(
+        clip, frames_dir, root / "CLIP-ViT-B-32-views.tsv", image_loader=load_frame,
+        batch_size=64))
+    exist, clip_feats = clip_model.read_clip_tsv(root / "CLIP-ViT-B-32-views.tsv")
+    if n != n_frames or len(clip_feats) != n_frames:
+        fail(f"6: {n} rows written, {len(clip_feats)} read back")
+    finite("CLIP features", np.concatenate(list(clip_feats.values())))
+    prompts = [clip_captions.PROMPT.format(c)
+               for c in clip_captions.AREAS + clip_captions.OBJECTS]
+    ids = np.zeros((len(prompts), clip.cfg.context_length), np.int64)
+    for r in range(len(prompts)):       # [SOT] words [EOT], the EOT the largest id
+        n_words = int(rng.integers(4, 9))
+        ids[r, 0] = clip.cfg.vocab_size - 2
+        ids[r, 1:1 + n_words] = rng.integers(1, clip.cfg.vocab_size - 2, n_words)
+        ids[r, 1 + n_words] = clip.cfg.vocab_size - 1
+    token_of = dict(zip(prompts, ids))
+    text = clip_model.text_features(clip, ids)
+    finite("CLIP text features", text)
+    cpu_check(errors, "clip_text", "CLIP text features", torch.from_numpy(text).cuda(),
+              torch.from_numpy(clip_model.text_features(clip_cpu, ids, device="cpu")))
+    del clip_cpu
+    frames_by_video = {vid: {int(k.split("_")[-1][:4]): v[0] for k, v in clip_feats.items()
+                             if k.startswith(vid + "_")} for vid in vids}
+    n = clip_captions.run(frames_by_video,
+                          lambda ps: clip_model.text_features(
+                              clip, np.stack([token_of[p] for p in ps])),
+                          root / "CLIP_captioned_images")
+    captions_by_video = {vid: json.loads((root / "CLIP_captioned_images" / vid
+                                          / "captions_SE.json").read_text()) for vid in vids}
+    if n != n_frames or sum(map(len, captions_by_video.values())) != n_frames:
+        fail(f"6: {n} frames captioned")
+
+    # 7-8: frozen ResNet-18 features, the inverse head, the profiles
+    feats_by_video = {}
+    for vid in vids:
+        images = frames_of(vid)
+        t0 = time.perf_counter()
+        feats_by_video[vid] = inverse_action.encode_frames(wrn, images, batch_size=64)
+        torch.cuda.synchronize()
+        stage_s["7_encode_frames"] = stage_s.get("7_encode_frames", 0.0) + time.perf_counter() - t0
+        finite("ResNet-18 features", feats_by_video[vid])
+    fk = np.concatenate([feats_by_video[v][:-1] for v in vids])
+    fk1 = np.concatenate([feats_by_video[v][1:] for v in vids])
+    y = np.concatenate([true_actions[v] for v in vids])
+    pick = np.random.default_rng(seed + 4)
+
+    def pairs():
+        while True:
+            sel = pick.integers(0, len(fk), PIPE_HEAD_BATCH)
+            yield fk[sel], fk1[sel], y[sel]
+
+    inverse_action.train_inverse_model(pairs(), steps=2, feat_channels=512, seed=seed)
+    head, losses = timed("7_head_train", lambda: inverse_action.train_inverse_model(
+        pairs(), steps=PIPE_HEAD_STEPS, lr=1e-3, feat_channels=512, seed=seed))
+    finite("inverse-head losses", losses)
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    print(f"inverse head: loss {first:.4f} -> {last:.4f} (mean of the first and last 5 of "
+          f"{PIPE_HEAD_STEPS} steps)")
+    if not last < first:
+        fail("the inverse head's loss did not fall")
+    head_cpu = cpu_copy(head, lambda device: inverse_action.InverseActionHead(512, device=device))
+    sel = slice(0, PIPE_CPU_FRAMES)
+    with torch.inference_mode():
+        cpu_check(errors, "inverse_logits", "inverse-head logits",
+                  head(torch.from_numpy(fk[sel]).cuda(), torch.from_numpy(fk1[sel]).cuda()),
+                  head_cpu(torch.from_numpy(fk[sel]), torch.from_numpy(fk1[sel])))
+    keyframes = list(range(1, PIPE_FRAMES + 1, PIPE_KEYFRAME_EVERY))
+    actions_by_video = {}
+    for vid in vids:
+        names = timed("8_predict", lambda: inverse_action.predict_actions(
+            head, list(feats_by_video[vid])))
+        if len(names) != PIPE_FRAMES - 1 or not set(names) <= set(inverse_action.ACTIONS):
+            fail(f"8: {len(names)} predicted actions")
+        actions_by_video[vid] = {f: names[f - 1] for f in keyframes[:-1]}
+        path = inverse_action.write_action_profiles(
+            root / "profiles", vid, {"0": keyframes}, actions_by_video[vid],
+            captions_by_video[vid])
+        if len(json.loads(path.read_text())[0]) != len(keyframes) - 1:
+            fail(f"8: {path} not read back")
+    accuracy = float(np.mean([n == inverse_action.ACTION_MAP[int(a)] for vid in vids
+                              for n, a in zip(inverse_action.predict_actions(
+                                  head, list(feats_by_video[vid])), true_actions[vid])]))
+
+    # 3-4: sharded region-feature TSVs (the seeded stand-in detector) -> store
+    n = timed("3_extraction", lambda: extraction.run_extraction(
+        frames_dir, root / "img_features",
+        lambda sid: detector.RandomProposalExtractor(num_boxes=36, seed=sid),
+        num_splits=2, num_workers=0, image_loader=load_frame))
+    shards = sorted((root / "img_features").glob("*.tsv"))
+    store_path = root / "ytb_features.vlnstore"
+    m = timed("4_convert_tsv", lambda: detector.convert_tsv_to_store(shards, store_path))
+    store = Store(store_path)
+    n_store = len(store)
+    store.close()
+    if not n == m == n_store == n_frames:
+        fail(f"3-4: {n} rows extracted, {m} converted, {n_store} in the store")
+
+    # 9-10: records, photo merging, frozen testset, a Loader batch
+    records = build_dataset.assemble_records(
+        vids, captions_by_video, actions_by_video, indoor_by_video=indoor_by_video,
+        maskrcnn_by_video=maskrcnn_by_video,
+        trajectory_by_video={vid: keyframes for vid in vids})
+    by_video = build_dataset.preprocess_records(records, min_caption=2, min_length=4)
+    if not by_video:
+        fail(f"9: no video survived the filters ({len(records)} records)")
+    build_dataset.write_preprocessed(by_video, root / "pre", "ytb_train")
+    flat = [r for items in by_video.values() for r in items]
+    for r in flat:
+        r["room"] = captions_by_video[r["video_id"]]["%04d.jpg" % r["frame_id"]][0] \
+            .split(" with ")[0]
+    caption_path = root / "merge+ytb_train.json"
+    caption_path.write_text(json.dumps(merge_photos.merge_dataset(flat, "max", 4)))
+    templates = [{"instructions": [" and turn [OMASK] ".join(["walk into the [MASK]"] * k)
+                                   + " ."]} for k in range(1, 8)]
+    (root / "templates.json").write_text(json.dumps(templates))
+    tok = write_fixture_vocab(root / "vocab.txt")
+    args = RunConfig(pretrain=True, pre_dataset="ytb", ranking=True, masked_vision=True,
+                     masked_language=True, max_instruction_length=32, max_path_length=4,
+                     max_num_boxes=36, min_path_length=3, min_captioned=2,
+                     max_captioned=4, num_negatives=2, shuffler="different",
+                     negative_style="normal", skeleton_path=str(root / "templates.json"))
+    reader = YTbFeaturesReader(store_path)
+    try:
+        ds = YTbDataset(args=args, caption_path=caption_path, tokenizer=tok,
+                        features_reader=reader, masked_vision=True, masked_language=True,
+                        training=True, seed=seed)
+        frozen = json.loads(build_dataset.freeze_testset(ds, root / "merge+testset.json")
+                            .read_text())
+        batch = next(iter(Loader(ds, batch_size=min(2, len(ds)), shuffle=True, seed=seed)))
+    finally:
+        reader.close()
+    if set(frozen) != set(ds.listing_ids) or batch["instr_tokens"].shape[1:] != (7, 32):
+        fail(f"9-10: testset {len(frozen)} listings, batch {batch['instr_tokens'].shape}")
+    for k, v in batch.items():
+        if np.asarray(v).dtype.kind == "f":
+            finite(f"Loader batch {k}", v)
+
+    dev = [t["device_s"] for t in det_times]
+    host = [t["host_s"] for t in det_times]
+    out = {
+        "pipeline": "steps 3-10 on 2 videos x 48 frames of 720 x 1280, f32, random "
+                    "weights from the seed",
+        "frames": n_frames,
+        "frames_per_s": {k: n_frames / stage_s[k] for k in (
+            "5a_indoor_filter", "5b_maskrcnn_filter", "6_clip_tsv", "7_encode_frames",
+            "3_extraction", "4_convert_tsv")},
+        "stage_s": stage_s,
+        "maskrcnn_ms_per_frame": {"device": 1e3 * float(np.mean(dev)),
+                                  "host": 1e3 * float(np.mean(host)), "frames": len(dev)},
+        "head_ms_per_step": 1e3 * stage_s["7_head_train"] / PIPE_HEAD_STEPS,
+        "head_losses": losses, "head_accuracy_on_the_frames": accuracy,
+        "records": len(records), "videos_kept": len(by_video), "listings": len(frozen),
+        "card_vs_cpu_err_over_largest_value": max(errors.values()),
+        "card_vs_cpu_worst": max(errors, key=errors.get),
+        "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+        "phase_s": time.perf_counter() - t_phase}
+    print(json.dumps(out))
+    shutil.rmtree(root, ignore_errors=True)
+    del wrn, alex, det, clip, head
+    torch.cuda.empty_cache()
+
+
 # what a child of phase 14 or 15 runs, by kind
 CHILD_RUNS = {"entry": child_entry, "mrt": child_mrt, "tp_mrt": child_tp_mrt}
 
@@ -2870,6 +3438,10 @@ def main() -> int:
     with phase_timer("13-15 training entries, ddp, tp"):
         (launches_train_entry, launches_pretrain_entry, launches_ddp,
          launches_tp) = train_entry_path(args.seed)
+    with phase_timer("16a legacy heads"):
+        launches_legacy = legacy_path(args.seed)
+    with phase_timer("16 pipeline"):
+        pipeline_path(args.seed)
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     for name, row in rows.items():
         row["launches_eval"] = launches_eval[name]
@@ -2880,10 +3452,12 @@ def main() -> int:
         row["launches_pretrain_entry"] = launches_pretrain_entry[name]
         row["launches_ddp"] = launches_ddp[name]
         row["launches_tp"] = launches_tp[name]
+        row["launches_legacy"] = launches_legacy[name]
         row["launches"] = (launches_eval[name] + launches_train[name]
                            + launches_pretrain[name] + launches_entry[name]
                            + launches_train_entry[name] + launches_pretrain_entry[name]
-                           + launches_ddp[name] + launches_tp[name])
+                           + launches_ddp[name] + launches_tp[name]
+                           + launches_legacy[name])
         if name in eval_rows:
             row["eval_shape"] = {k: eval_rows[name][k] for k in keys}
         row.update(occupancy.get(name, {}))

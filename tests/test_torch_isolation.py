@@ -28,7 +28,13 @@ for module in ("device", "ops.philox", "ops.epilogue", "ops.masking",
                "data.loader", "data.fixtures", "data.nav_graph",
                "evaluation.metrics", "training.engine", "training.checkpoint",
                "utils.cli", "utils.entry", "utils.misc", "entries.test",
-               "entries.calculate_metrics", "entries.train", "entries.pretrain"):
+               "entries.calculate_metrics", "entries.train", "entries.pretrain",
+               "models.legacy", "pipeline.resize", "pipeline.places365",
+               "pipeline.maskrcnn", "pipeline.clip_model", "pipeline.inverse_action",
+               "pipeline.filters", "pipeline.clip_captions", "pipeline.detector",
+               "pipeline.extraction", "pipeline.build_dataset", "pipeline.merge_photos",
+               "entries.clip_features", "entries.extract_features",
+               "entries.convert_tsv", "entries.merge_photos", "entries.build_testset"):
     assert pkg.__name__ + "." + module in names, module
 
 import os, tempfile
@@ -66,9 +72,50 @@ for call in (lambda: beam_eval.eval_epoch(model, cfg, []),
         assert "CUDA" in str(e), e
     else:
         raise SystemExit("an entry point ran without CUDA and without device='cpu'")
+# the legacy heads and the pipeline's models and drivers
+from youtube_vln_tpu_torch.entries import clip_features
+from youtube_vln_tpu_torch.models import legacy
+from youtube_vln_tpu_torch.pipeline import (clip_model, filters, inverse_action,
+                                            maskrcnn, places365)
+frames = os.path.join(out, "raw_frames", "vid0")
+os.makedirs(frames)
+frames = os.path.dirname(frames)
+wrn = places365.WideResNet18(7, device="cpu")
+alex = places365.AlexNet(7, device="cpu")
+clip = clip_model.ClipModel(clip_model.ClipConfig(v_layers=1, t_layers=1), device="cpu")
+head = inverse_action.InverseActionHead(8, device="cpu")
+det = maskrcnn.MaskRCNNDetector(maskrcnn.MaskRCNN(device="cpu"), device="cpu")
+img = np.zeros((1, 32, 32, 3), np.uint8)
+sink = os.path.join(out, "sink")
+for call in (lambda: legacy.BertForMultiModalPreTraining(cfg),
+             lambda: legacy.VILBertForVLTasks(cfg, 3),
+             lambda: places365.WideResNet18(), lambda: places365.AlexNet(),
+             lambda: maskrcnn.MaskRCNN(), lambda: clip_model.ClipModel(),
+             lambda: inverse_action.InverseActionHead(),
+             lambda: maskrcnn.MaskRCNNDetector(det.model),
+             lambda: places365.preprocess_images(img),
+             lambda: places365.score_batch(wrn, None, labels_io=np.zeros(7)),
+             lambda: places365.alexnet_indoor_probs(alex, img, np.zeros(7)),
+             lambda: filters.places365_indoor_probs(wrn, img, np.zeros(7)),
+             lambda: filters.run_indoor_filter(frames, sink, wrn, np.zeros(7)),
+             lambda: filters.run_maskrcnn_filter(frames, sink, alex, np.zeros(7), det),
+             lambda: clip_model.encode_video_frames(clip, img),
+             lambda: clip_model.build_clip_tsv(clip, frames, os.path.join(sink, "c.tsv")),
+             lambda: clip_model.text_features(clip, np.zeros((1, 4), np.int64)),
+             lambda: inverse_action.train_inverse_model(iter([]), steps=1),
+             lambda: inverse_action.encode_frames(wrn, img),
+             lambda: inverse_action.predict_actions(head, [np.zeros((8, 7, 7))] * 2),
+             lambda: clip_features.main([frames, os.path.join(sink, "c.tsv")])):
+    try:
+        call()
+    except RuntimeError as e:
+        assert "CUDA" in str(e), e
+    else:
+        raise SystemExit("a pipeline call ran without CUDA and without device='cpu'")
+assert not os.path.exists(sink), "a pipeline driver wrote output before it refused"
 assert beam_eval.eval_epoch(model, cfg, [], device="cpu") == []
 train_step.build_train_step(model, cfg, args, optimizer, device="cpu")
-assert not os.listdir(out), "an entry wrote output before it refused"
+assert os.listdir(out) == ["raw_frames"], "an entry wrote output before it refused"
 print("isolated")
 """
 
@@ -95,6 +142,26 @@ from youtube_vln_tpu_torch.data.datasets import BeamDataset
 assert "torch" not in sys.modules, "the host pipeline imports torch"
 print("host only")
 """
+
+
+_HOST_COPIES = r"""
+import sys
+from youtube_vln_tpu_torch.pipeline import (build_dataset, clip_captions, detector,
+                                            extraction, merge_photos)
+from youtube_vln_tpu_torch.entries import (convert_tsv, extract_features,
+                                           merge_photos as merge_entry)
+assert "torch" not in sys.modules, "a host copy of the pipeline imports torch"
+print("host only")
+"""
+
+
+def test_pipeline_host_copies_import_no_torch():
+    """``extraction.run_extraction`` forks a ``multiprocessing.Pool``, and a
+    fork after CUDA is up is unsafe: the pipeline's host copies and the
+    entries built on them import no torch."""
+    r = _run(["-c", _HOST_COPIES], REPO)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert r.stdout.strip().endswith("host only")
 
 
 def test_host_pipeline_imports_no_torch():

@@ -18,6 +18,25 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def make_generator(seed, device) -> torch.Generator:
+    """``seed`` (an int) as a generator on ``device``; a generator passes
+    through."""
+    if isinstance(seed, torch.Generator):
+        return seed
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(seed))
+    return gen
+
+
+def check_device(model: torch.nn.Module, device) -> torch.device:
+    """``resolve_device(device)``, which must be where ``model`` lives."""
+    dev = resolve_device(device)
+    p = next(model.parameters(), None)
+    if p is not None and p.device.type != dev.type:
+        raise ValueError(f"the model is on {p.device}, the call on {dev}")
+    return dev
+
+
 def to_device(batch: Dict[str, np.ndarray], device: torch.device
               ) -> Dict[str, torch.Tensor]:
     """numpy batch -> tensors on ``device``; to a GPU through pinned host
