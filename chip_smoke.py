@@ -155,11 +155,28 @@ Phases, each fatal on failure:
      more than 1e-4 of the CPU output's largest value; prints a ``pipeline``
      JSON line (frames/s per stage, Mask R-CNN device and host ms per frame,
      the head's ms per step, peak memory, the phase's seconds);
- 17. a ``kernels`` JSON line: per kernel its launches on the eval, the
+ 17. the tools (``python -m youtube_vln_tpu_torch.entries.<tool>``), in
+     this process: ``check_kernels`` (a) B5's drop fraction, (b) the mask
+     replay of B1-B6 by finite differences, (c) two launches bitwise equal,
+     (d) the backward error of the kernels on a flagship sample against
+     the plain f32 path, beside the bf16 floor and with each of B1-B4 on
+     its plain twin, for 3 weight seeds, (e) "skipped (1 device)";
+     then, counted, ``profile_step full full_epi --recipe 30rs --table``
+     (ms per 30RS step, and a ``profile`` line: the top ops and kernels by
+     self device time, busy and idle share), ``bench_serving --dedup``,
+     ``bench`` (kernel against plain path, trajectories/s, MFU),
+     ``bench_e2e`` (an epoch's start-up, then 8 steady-state Loader-fed
+     steps, 3 workers, against the device-only step, candidate-dedup and
+     dense; ``slab_overflow``), ``bench_loader``
+     and ``bench_loader --eval``, and ``northstar`` on
+     phase 4b's fixture and weights with run A's SR and SPL expected: it
+     must report PASS, and every kernel must launch; prints each tool's line
+     and a ``tools`` summary line;
+ 18. a ``kernels`` JSON line: per kernel its launches on the eval, the
      fine-tuning, the pretraining, the test entry (run A), the train entry,
      the pretrain entry, the data-parallel (phase 14 b and c, every rank),
-     the tensor-parallel (phase 15 b and c, every rank) and the legacy-head
-     (phase 16a) paths, error,
+     the tensor-parallel (phase 15 b and c, every rank), the legacy-head
+     (phase 16a) and the tools (phase 17) paths, error,
      time, bound, plain time
      and a library call's time at the train shapes (B1/B2 also at the eval
      shapes, B5/B6 at the pretraining shape); B1-B4 also carry the bf16
@@ -754,14 +771,16 @@ def check_trajectories(results, other, scores, tol, what):
           f"differ within a tie (tol {tol:.0e})")
 
 
-def entry_path(seed, synthetic_ms):
+def entry_path(seed, synthetic_ms, root):
     """Phase 4b: the user's own entry, ``entries.test.main``, on an R2R
     fixture at the flagship eval geometry (``build_r2r_fixture``: 15
     instructions of val_unseen x 30 beams x 8 steps x 100 boxes + the global
     row), with weights of ``lily_base_config`` from the seed saved as a
     reference-layout ``.bin``. Run A: bf16, step-dedup transport; B: the
     dense transport; C: f32 with the kernels; D: f32 with ``--no_pallas``.
-    Returns run A's launch counts."""
+    The fixture and the weights are written under ``root``, where phase 17
+    reads them again.  Returns run A's launch counts and run A itself (the
+    root, the fixture's paths, the split, SR and SPL)."""
     import numpy as np
     import torch
     from youtube_vln_tpu_torch import lily_base_config
@@ -777,65 +796,64 @@ def entry_path(seed, synthetic_ms):
     from youtube_vln_tpu_torch.utils.cli import parse_run_config
 
     split, n_instr = "val_unseen", 15
-    with tempfile.TemporaryDirectory(prefix="r2r_fixture_") as root:
+    t0 = time.perf_counter()
+    paths = build_r2r_fixture(root, k_boxes=BOXES - 1, n_beams=NC, path_len=L,
+                              seed=seed)
+    store_mb = Path(paths["store_path"]).stat().st_size / 1e6
+    print(f"R2R fixture: {split} {n_instr} instructions x {NC} beams x {L} "
+          f"steps x {BOXES} boxes, pano store {store_mb:.1f} MB, built in "
+          f"{time.perf_counter() - t0:.1f} s")
+    if store.get_native() is None:
+        fail("the native store library (native/libvlnstore.so) did not build: "
+             "the step-dedup path needs its packer")
+    weights = Path(root) / "lily_base_seed.bin"
+    model = Lily(lily_base_config(), device="cuda").init_weights(seed)
+    torch.save({"model_state_dict": model.state_dict()}, weights)
+    missing, unexpected, _, _ = load_checkpoint(weights, model)
+    if missing or unexpected:
+        fail(f"weights file: missing {missing[:3]}, unexpected {unexpected[:3]}")
+    del model
+    torch.cuda.empty_cache()
+
+    flags = ["--device", "cuda",
+             "--config_file", str(REPO / "configs" / "bert_base_6_layer_6_connect.json"),
+             "--data_dir", paths["data_dir"], "--img_feature", paths["store_path"],
+             "--bert_tokenizer", paths["vocab_path"], "--from_pretrained", str(weights),
+             "--output_dir", str(Path(root) / "result"), "--seed", str(seed)]
+    runs = {"A": [], "B": ["--no_dedup_beam_steps"],
+            "C": ["--compute_dtype", "float32"],
+            "D": ["--compute_dtype", "float32", "--no_pallas"]}
+    out = {}
+    for name, extra in runs.items():
+        times = []
+        reset_counts()
+        with timed_eval_epoch(times):
+            results_path = entry.main(["--split", split] + flags + extra
+                                      + ["--save_name", f"run{name}"])
+        launches = counts()
+        folder = Path(results_path).parent
+        scores = dict(json.loads((folder / f"_scores_{split}.json").read_text()))
+        results = json.loads(Path(results_path).read_text())
+        out[name] = dict(launches=launches, scores=scores, results=results,
+                         path=results_path, ms=times[0])
+
+    # the items the entry scored, rebuilt for their beam masks and timed
+    # on the host, one __getitem__ at a time
+    _, args = parse_run_config(flags + ["--num_beams", "1", "--batch_size", "1",
+                                        "--ranking"])
+    host_ms = {}
+    for transport, dedup in (("step_dedup", True), ("dense", False)):
+        args.dedup_beam_steps = dedup
+        reader = PanoFeaturesReader(args.img_feature)
+        ds = load_beam_dataset(split, args, resolve_tokenizer(args), reader,
+                               training=False)
         t0 = time.perf_counter()
-        paths = build_r2r_fixture(root, k_boxes=BOXES - 1, n_beams=NC, path_len=L,
-                                  seed=seed)
-        store_mb = Path(paths["store_path"]).stat().st_size / 1e6
-        print(f"R2R fixture: {split} {n_instr} instructions x {NC} beams x {L} "
-              f"steps x {BOXES} boxes, pano store {store_mb:.1f} MB, built in "
-              f"{time.perf_counter() - t0:.1f} s")
-        if store.get_native() is None:
-            fail("the native store library (native/libvlnstore.so) did not build: "
-                 "the step-dedup path needs its packer")
-        weights = Path(root) / "lily_base_seed.bin"
-        model = Lily(lily_base_config(), device="cuda").init_weights(seed)
-        torch.save({"model_state_dict": model.state_dict()}, weights)
-        missing, unexpected, _, _ = load_checkpoint(weights, model)
-        if missing or unexpected:
-            fail(f"weights file: missing {missing[:3]}, unexpected {unexpected[:3]}")
-        del model
-        torch.cuda.empty_cache()
-
-        flags = ["--device", "cuda",
-                 "--config_file", str(REPO / "configs" / "bert_base_6_layer_6_connect.json"),
-                 "--data_dir", paths["data_dir"], "--img_feature", paths["store_path"],
-                 "--bert_tokenizer", paths["vocab_path"], "--from_pretrained", str(weights),
-                 "--output_dir", str(Path(root) / "result"), "--seed", str(seed)]
-        runs = {"A": [], "B": ["--no_dedup_beam_steps"],
-                "C": ["--compute_dtype", "float32"],
-                "D": ["--compute_dtype", "float32", "--no_pallas"]}
-        out = {}
-        for name, extra in runs.items():
-            times = []
-            reset_counts()
-            with timed_eval_epoch(times):
-                results_path = entry.main(["--split", split] + flags + extra
-                                          + ["--save_name", f"run{name}"])
-            launches = counts()
-            folder = Path(results_path).parent
-            scores = dict(json.loads((folder / f"_scores_{split}.json").read_text()))
-            results = json.loads(Path(results_path).read_text())
-            out[name] = dict(launches=launches, scores=scores, results=results,
-                             path=results_path, ms=times[0])
-
-        # the items the entry scored, rebuilt for their beam masks and timed
-        # on the host, one __getitem__ at a time
-        _, args = parse_run_config(flags + ["--num_beams", "1", "--batch_size", "1",
-                                            "--ranking"])
-        host_ms = {}
-        for transport, dedup in (("step_dedup", True), ("dense", False)):
-            args.dedup_beam_steps = dedup
-            reader = PanoFeaturesReader(args.img_feature)
-            ds = load_beam_dataset(split, args, resolve_tokenizer(args), reader,
-                                   training=False)
-            t0 = time.perf_counter()
-            items = [ds[i] for i in range(len(ds))]
-            host_ms[transport] = (time.perf_counter() - t0) * 1e3 / len(items)
-            reader.close()
-        opt = {f"{int(it['instr_id'][0])}_{int(it['instr_id'][1])}": it["opt_mask"]
-               for it in items}
-        evaluation = Evaluation([split], data_dir=paths["data_dir"])
+        items = [ds[i] for i in range(len(ds))]
+        host_ms[transport] = (time.perf_counter() - t0) * 1e3 / len(items)
+        reader.close()
+    opt = {f"{int(it['instr_id'][0])}_{int(it['instr_id'][1])}": it["opt_mask"]
+           for it in items}
+    evaluation = Evaluation([split], data_dir=paths["data_dir"])
 
     if len(opt) != n_instr:
         fail(f"entry: {len(opt)} instructions in {split}, expected {n_instr}")
@@ -887,7 +905,9 @@ def entry_path(seed, synthetic_ms):
         "store_reader": "native" if store.get_native() is not None else "numpy",
         "synthetic_ms_per_request": synthetic_ms,
         "runs": {k: " ".join(v) or "bf16, step-dedup" for k, v in runs.items()}}))
-    return out["A"]["launches"]
+    run_a = dict(root=root, paths=paths, split=split,
+                 sr=out["A"]["summary"]["success_rate"], spl=out["A"]["summary"]["spl"])
+    return out["A"]["launches"], run_a
 
 
 def device_breakdown(run, name):
@@ -1439,37 +1459,9 @@ def plain_launchers():
     B1-B6 in ops/attention.py and ops/epilogue.py replaced, for CUDA
     tensors, by the plain versions (same Philox masks).  Nothing launches,
     so the launch counts stay 0."""
-    import torch
+    from youtube_vln_tpu_torch.entries.check_kernels import PLAIN_TWINS
     from youtube_vln_tpu_torch.ops import attention as A
     from youtube_vln_tpu_torch.ops import epilogue as E
-
-    def bias_or_zeros(bias, b, s, device):
-        return torch.zeros(b, s, device=device) if bias is None else bias
-
-    def attention_fwd(q, k, v, bias, rate, seed, want_lse, *streams):
-        bias = bias_or_zeros(bias, q.shape[0], k.shape[2], q.device)
-        lse = A.attention_lse_reference(q, k, bias) if want_lse else None
-        return (A.attention_reference(q, k, v, bias, rate, seed, 0, *streams), lse,
-                (q, k, v, bias))
-
-    def attention_bwd(q, k, v, bias, o, do, lse, rate, seed, *streams):
-        return A.attention_bwd_reference(q, k, v, bias, do, rate, seed, 0, *streams)
-
-    def bi_attention_fwd(q1, k1, v1, q2, k2, v2, v_bias, t_bias, rate1, rate2,
-                         seed, want_lse, *streams):
-        vb = bias_or_zeros(v_bias, q1.shape[0], k1.shape[2], q1.device)
-        tb = bias_or_zeros(t_bias, q1.shape[0], k2.shape[2], q1.device)
-        ctx1, ctx2 = A.bi_attention_reference(q1, k1, v1, q2, k2, v2, vb, tb,
-                                              rate1, rate2, seed, *streams)
-        lse1, lse2 = ((A.attention_lse_reference(q2, k1, vb),
-                       A.attention_lse_reference(q1, k2, tb)) if want_lse
-                      else (None, None))
-        return ctx1, ctx2, lse1, lse2, (q1, k1, v1, q2, k2, v2, vb, tb)
-
-    def bi_attention_bwd(q1, k1, v1, q2, k2, v2, vb, tb, ctx1, ctx2, lse1, lse2,
-                         do1, do2, rate1, rate2, seed, *streams):
-        return A.bi_attention_bwd_reference(q1, k1, v1, q2, k2, v2, vb, tb, do1,
-                                            do2, rate1, rate2, seed, *streams)
 
     def epilogue_fwd(h, res, weight, bias, rate, seed, row0=0):
         d = h.shape[-1]
@@ -1481,10 +1473,8 @@ def plain_launchers():
         return E.epilogue_bwd_reference(h, res, weight, do.reshape(h.shape), rate, seed,
                                         row0)
 
-    patched = [(A, "_attention_fwd", attention_fwd), (A, "_attention_bwd", attention_bwd),
-               (A, "_bi_attention_fwd", bi_attention_fwd),
-               (A, "_bi_attention_bwd", bi_attention_bwd),
-               (E, "_epilogue_fwd", epilogue_fwd), (E, "_epilogue_bwd", epilogue_bwd)]
+    patched = [(A, f"_{name}", twin) for name, twin in PLAIN_TWINS.items()]
+    patched += [(E, "_epilogue_fwd", epilogue_fwd), (E, "_epilogue_bwd", epilogue_bwd)]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patched]
     try:
         for mod, name, fn in patched:
@@ -3391,6 +3381,121 @@ def pipeline_path(seed):
     torch.cuda.empty_cache()
 
 
+TOOLS_STEPS, TOOLS_WINDOWS = 3, 2   # timed steps per window of phase 17's benches
+# bench_e2e's fixture, one item per video: 10 batches of 8 per epoch, the
+# first 2 stepped before its steady-state window of 8
+TOOLS_E2E_VIDEOS, TOOLS_E2E_STEPS = 80, 8
+
+
+def run_tool(name, main, argv):
+    """``main(argv)`` of a tool entry in this process; its own check failing
+    (a non-zero exit) fails the run."""
+    print(f"tool: python -m youtube_vln_tpu_torch.entries.{name} {' '.join(argv)}",
+          flush=True)
+    try:
+        return main(argv)
+    except SystemExit as e:
+        fail(f"{name}: exited with {e.code}")
+
+
+def tools_path(seed, run_a):
+    """Phase 17: the port's tools on the card, as a user runs them.
+    ``check_kernels`` (a)-(e) first, outside the counted path; then, with
+    the launch counts reset, ``profile_step full full_epi --recipe 30rs
+    --table`` (the per-op table of the 30RS step, the ``profile`` line),
+    ``bench_serving --dedup`` and ``bench``, a few timed windows each,
+    ``bench_e2e`` (its second epoch's start-up, then 8 steady-state
+    Loader-fed steps with 3 workers) on the candidate-dedup transport and
+    on the dense one, ``bench_loader`` (YTb
+    items and the Loader) and ``bench_loader --eval``, and ``northstar`` on
+    phase 4b's fixture and weights, expecting run A's SR and SPL.  Returns
+    the launch counts of the counted tools."""
+    import numpy as np
+    import torch
+    from youtube_vln_tpu_torch.entries import (bench, bench_e2e, bench_loader,
+                                               bench_serving, check_kernels,
+                                               northstar, profile_step)
+
+    checks = check_kernels.run_checks("cuda")
+    print(json.dumps({"check_kernels": checks}))
+    if checks["failures"]:
+        fail(f"check_kernels: {checks['failures']}")
+    want = ("skipped (1 device)" if torch.cuda.device_count() == 1
+            else f"ok ({torch.cuda.device_count()} devices")
+    if not checks["multichip_dropout"].startswith(want):
+        fail(f"check_kernels (e): {checks['multichip_dropout']}")
+    torch.cuda.empty_cache()
+
+    reset_counts()
+    steps = ["--steps", str(TOOLS_STEPS)]
+    prof = run_tool("profile_step", profile_step.main,
+                    ["full", "full_epi", "--recipe", "30rs", "--table"] + steps)
+    table = prof["table"]
+    if not (table["ops"] and table["kernels"] and 0 < table["device_busy_ms"]
+            <= table["wall_ms"]):
+        fail(f"profile_step: no device time in the traced 30RS step: {table}")
+    torch.cuda.empty_cache()
+    serving = run_tool("bench_serving", bench_serving.main,
+                       ["--dedup", "--dispatches", "6", "--windows", str(TOOLS_WINDOWS)])
+    torch.cuda.empty_cache()
+    headline = run_tool("bench", bench.main,
+                        steps + ["--windows", str(TOOLS_WINDOWS), "--eval_dispatches", "6"])
+    torch.cuda.empty_cache()
+    e2e = {}
+    for transport, flag in (("dedup", "--dedup"), ("dense", "--no-dedup")):
+        e2e[transport] = run_tool("bench_e2e", bench_e2e.main, [
+            "--steps", str(TOOLS_E2E_STEPS), "--num_workers", "3", "--n_videos",
+            str(TOOLS_E2E_VIDEOS), flag])
+        torch.cuda.empty_cache()
+    loader = {"ytb": run_tool("bench_loader", bench_loader.main, []),
+              "eval": run_tool("bench_loader", bench_loader.main,
+                               ["--eval", "--items", "4"])}
+    paths = run_a["paths"]
+    star = run_tool("northstar", northstar.main, [
+        "--data_dir", paths["data_dir"], "--img_feature", paths["store_path"],
+        "--from_pretrained", str(Path(run_a["root"]) / "lily_base_seed.bin"),
+        "--config_file", str(REPO / "configs" / "bert_base_6_layer_6_connect.json"),
+        "--bert_tokenizer", paths["vocab_path"], "--split", run_a["split"],
+        "--output_dir", str(Path(run_a["root"]) / "result"),
+        "--expected_sr", repr(run_a["sr"]), "--expected_spl", repr(run_a["spl"]),
+        "--tolerance_pts", "0.01", "--device", "cuda", "--extra", "--seed", str(seed)])
+    launches = counts()
+    print(f"launches on the tools path: {launches}")
+    idle = [k for k, n in launches.items() if n == 0]
+    if idle:
+        fail(f"tools path: {idle} never launched")
+    if star["northstar"] != "PASS":
+        fail(f"northstar: {star['northstar']} against run A's SR {run_a['sr']} "
+             f"and SPL {run_a['spl']}")
+    for name, line in (("bench_serving", serving), ("bench", headline),
+                       ("bench_e2e", e2e["dedup"]), ("bench_e2e", e2e["dense"]),
+                       ("bench_loader", loader["ytb"]), ("bench_loader", loader["eval"])):
+        if not (np.isfinite(line["value"]) and line["value"] > 0):
+            fail(f"{name}: {line['value']} {line['unit']}")
+    print(json.dumps({"tools": {
+        "profile_step_ms": prof["profile_step"],
+        "profile_busy_ms": table["device_busy_ms"],
+        "profile_idle_share": table["device_idle_share"],
+        "serving_beams_per_s": {k: v["beams_per_s"] for k, v in
+                                serving["detail"].items() if isinstance(v, dict)},
+        "bench_traj_per_s": headline["value"],
+        "bench_step_ms": headline["detail"]["step_ms"],
+        "bench_mfu": headline["detail"]["mfu"],
+        "e2e_traj_per_s": {k: v["value"] for k, v in e2e.items()},
+        "e2e_epoch_start_ms": {k: v["detail"]["epoch_start_ms"] for k, v in e2e.items()},
+        "e2e_device_only_traj_per_s": {k: v["detail"]["device_only_traj_per_s"]
+                                       for k, v in e2e.items()},
+        "e2e_host_batch_bytes": {k: v["detail"]["host_batch_bytes"]
+                                 for k, v in e2e.items()},
+        "e2e_slab_overflow": {k: v["detail"]["slab_overflow"] for k, v in e2e.items()},
+        "loader_traj_per_s": loader["ytb"]["value"],
+        "loader_eval_ms": {k: loader["eval"]["detail"][f"{k}_assembly_ms_per_instruction"]
+                           for k in ("dense", "dedup")},
+        "northstar": star["northstar"], "sr": star["metrics"]["success_rate"],
+        "spl": star["metrics"]["spl"]}}))
+    return launches
+
+
 # what a child of phase 14 or 15 runs, by kind
 CHILD_RUNS = {"entry": child_entry, "mrt": child_mrt, "tp_mrt": child_tp_mrt}
 
@@ -3427,8 +3532,10 @@ def main() -> int:
         edge_checks(args.seed)
     with phase_timer("4 eval path"):
         launches_eval, synthetic_ms = main_path(args.seed)
+    # phase 4b's R2R fixture and weights, read again by phase 17
+    r2r_root = tempfile.TemporaryDirectory(prefix="r2r_fixture_")
     with phase_timer("4b test entry"):
-        launches_entry = entry_path(args.seed, synthetic_ms)
+        launches_entry, run_a = entry_path(args.seed, synthetic_ms, r2r_root.name)
     with phase_timer("5-8 train checks and path"):
         rows = train_kernel_checks(args.seed)
         launches_train = train_path(args.seed)
@@ -3442,6 +3549,9 @@ def main() -> int:
         launches_legacy = legacy_path(args.seed)
     with phase_timer("16 pipeline"):
         pipeline_path(args.seed)
+    with phase_timer("17 tools"):
+        launches_tools = tools_path(args.seed, run_a)
+    r2r_root.cleanup()
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     for name, row in rows.items():
         row["launches_eval"] = launches_eval[name]
@@ -3453,11 +3563,12 @@ def main() -> int:
         row["launches_ddp"] = launches_ddp[name]
         row["launches_tp"] = launches_tp[name]
         row["launches_legacy"] = launches_legacy[name]
+        row["launches_tools"] = launches_tools[name]
         row["launches"] = (launches_eval[name] + launches_train[name]
                            + launches_pretrain[name] + launches_entry[name]
                            + launches_train_entry[name] + launches_pretrain_entry[name]
                            + launches_ddp[name] + launches_tp[name]
-                           + launches_legacy[name])
+                           + launches_legacy[name] + launches_tools[name])
         if name in eval_rows:
             row["eval_shape"] = {k: eval_rows[name][k] for k in keys}
         row.update(occupancy.get(name, {}))

@@ -144,9 +144,14 @@ def test_missing_tensor_keeps_its_initialisation(tmp_path, setup):
                        torch.tensor(np.array(sd["vil_logit.weight"])))
 
 
-def test_url_and_missing_paths_raise(tmp_path, setup):
+def test_url_and_missing_paths_raise(tmp_path, setup, monkeypatch):
+    """A URL resolves through the offline file cache alone: one that is not
+    cached raises, naming where to place it; missing and unreadable paths
+    raise too."""
+    from youtube_vln_tpu_torch.utils import file_cache
+    monkeypatch.setattr(file_cache, "CACHE_DIR", tmp_path / "cache")
     model = Lily(setup[2], device="cpu")
-    with pytest.raises(ValueError, match="URL"):
+    with pytest.raises(FileNotFoundError, match="not cached"):
         pckpt.load_checkpoint("https://example.invalid/model.bin", model)
     with pytest.raises(FileNotFoundError):
         pckpt.load_checkpoint(str(tmp_path / "absent.tar.gz"), model)

@@ -2,14 +2,15 @@
 utils/cli.py``, ``entry.py``, ``misc.py``) against the JAX package's: the
 same options with the same defaults, types, choices and actions (this pins
 the flag set without the reference repository), apart from ``--device``;
-the TPU-only flag not ported yet refused at any non-default value, a
-``data`` x ``model`` mesh parsed and refused against a process group of
-another size, and ``--remat`` / ``--profile_dir`` / ``--mesh_axes`` /
-``--orbax_checkpoints`` parsed; ``args_to_run_config`` and
+no TPU-only flag left to refuse, a ``data`` x ``model`` mesh parsed and
+refused against a process group of another size, and ``--remat`` /
+``--profile_dir`` / ``--mesh_axes`` / ``--orbax_checkpoints`` /
+``--compilation_cache_dir`` (the kernels' build directory) parsed; ``args_to_run_config`` and
 ``build_model_config`` equal field for field; ``increment_path``,
 ``dump_config`` and ``save_code_snapshot`` write the same folders and
 files."""
 import dataclasses
+import pathlib
 import re
 
 import pytest
@@ -60,18 +61,21 @@ FLAGS = {"mesh_shape": ["--mesh_shape", "2", "4"],
          "compilation_cache_dir": ["--compilation_cache_dir", "cache"],
          "orbax_checkpoints": ["--orbax_checkpoints"]}
 PORTED = {"remat": True, "profile_dir": "traces", "mesh_axes": ("data",),
-          "orbax_checkpoints": True, "mesh_shape": (2, 4)}
+          "orbax_checkpoints": True, "mesh_shape": (2, 4),
+          "compilation_cache_dir": "cache"}
 REFUSED_VALUES = set()
 
 
 @pytest.mark.parametrize("flag", sorted(FLAGS))
-def test_tpu_only_flags_refused_unless_default(flag):
+def test_tpu_only_flags_refused_unless_default(flag, monkeypatch):
     """The JAX package's TPU-only flags: those not ported yet are refused at
     any value but their default, naming the ROADMAP item that ports them;
     the ported ones (--remat, --profile_dir, --mesh_axes,
-    --orbax_checkpoints, and --mesh_shape with a model axis above 1,
-    tensor parallelism) parse into RunConfig as they do in the JAX package;
-    a mesh is refused against a process group of another size."""
+    --orbax_checkpoints, --compilation_cache_dir, and --mesh_shape with a
+    model axis above 1, tensor parallelism) parse into RunConfig as they do
+    in the JAX package; a mesh is refused against a process group of
+    another size; the compilation cache directory is where the kernels are
+    built."""
     pcli.parse_run_config([])     # every default is accepted
     assert set(pcli.TPU_ONLY) == set(FLAGS) - set(PORTED) - REFUSED_VALUES
     if flag in PORTED:
@@ -79,6 +83,15 @@ def test_tpu_only_flags_refused_unless_default(flag):
         assert getattr(args, flag) == PORTED[flag]
         _, jargs = jcli.parse_run_config(FLAGS[flag])
         assert getattr(jargs, flag) == PORTED[flag]
+        if flag == "compilation_cache_dir":
+            from youtube_vln_tpu_torch.ops import _build
+            monkeypatch.setattr(_build, "_build_dir", _build.BUILD_DIR)
+            _build.set_build_dir(args.compilation_cache_dir)
+            for name in _build.SOURCES:
+                path = _build.library_path(name)
+                assert path.parent == pathlib.Path("cache") and path.name.startswith(f"lib{name}_")
+            _build.set_build_dir("")
+            assert _build.library_path("epilogue").parent == _build.BUILD_DIR
         if flag == "mesh_shape":
             assert pmesh.mesh_extents(args.mesh_shape, args.mesh_axes, 8) == {
                 "data": 2, "model": 4}
@@ -165,9 +178,8 @@ def test_run_config_and_model_config_equal_jax(argv, tmp_path):
     assert pfields.pop("use_attention_kernels") == jfields["use_pallas_attention"]
     for name, value in pfields.items():
         assert value == jfields[name], name
-    # the fields the port leaves out are the TPU-only ones not ported yet
-    assert set(jfields) - set(pfields) == {"use_pallas_attention",
-                                           "compilation_cache_dir"}
+    # the field the port leaves out is renamed (use_attention_kernels)
+    assert set(jfields) - set(pfields) == {"use_pallas_attention"}
 
     for config_file in (str(tmp_path / "absent.json"), "configs/bert_base_6_layer_6_connect.json"):
         jargs.config_file = pargs.config_file = config_file

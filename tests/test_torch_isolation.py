@@ -1,6 +1,7 @@
 """The port stands alone: it never imports JAX, the JAX package or
-networkx (absent on the card machine), and its entry points refuse to run
-on a machine without CUDA unless the caller asks for the CPU."""
+networkx (absent on the card machine), its entry points and tools refuse
+to run on a machine without CUDA unless the caller asks for the CPU, and
+its host code and host tools import no torch."""
 import os
 import re
 import shutil
@@ -34,7 +35,12 @@ for module in ("device", "ops.philox", "ops.epilogue", "ops.masking",
                "pipeline.filters", "pipeline.clip_captions", "pipeline.detector",
                "pipeline.extraction", "pipeline.build_dataset", "pipeline.merge_photos",
                "entries.clip_features", "entries.extract_features",
-               "entries.convert_tsv", "entries.merge_photos", "entries.build_testset"):
+               "entries.convert_tsv", "entries.merge_photos", "entries.build_testset",
+               "utils.file_cache", "utils.measure", "pipeline.frames", "pipeline.assets",
+               "entries.merge_stores", "entries.convert_lmdb", "entries.extract_frames",
+               "entries.check_kernels", "entries.profile_step", "entries.bench",
+               "entries.bench_serving", "entries.bench_e2e", "entries.bench_loader",
+               "entries.northstar"):
     assert pkg.__name__ + "." + module in names, module
 
 import os, tempfile
@@ -72,6 +78,22 @@ for call in (lambda: beam_eval.eval_epoch(model, cfg, []),
         assert "CUDA" in str(e), e
     else:
         raise SystemExit("an entry point ran without CUDA and without device='cpu'")
+# the tools: the device is resolved before a model, a fixture or a folder
+from youtube_vln_tpu_torch.entries import (bench, bench_e2e, bench_serving,
+                                           check_kernels, northstar, profile_step)
+for call in (lambda: check_kernels.main([]), lambda: profile_step.main(["full"]),
+             lambda: bench.main([]), lambda: bench_serving.main([]),
+             lambda: bench_e2e.main(["--n_videos", "2"]),
+             lambda: northstar.main(["--data_dir", "absent", "--img_feature",
+                                     "absent.vlnstore", "--from_pretrained", "x.bin",
+                                     "--config_file", "absent.json",
+                                     "--output_dir", out])):
+    try:
+        call()
+    except RuntimeError as e:
+        assert "CUDA" in str(e), e
+    else:
+        raise SystemExit("a tool ran without CUDA and without --device cpu")
 # the legacy heads and the pipeline's models and drivers
 from youtube_vln_tpu_torch.entries import clip_features
 from youtube_vln_tpu_torch.models import legacy
@@ -153,6 +175,27 @@ from youtube_vln_tpu_torch.entries import (convert_tsv, extract_features,
 assert "torch" not in sys.modules, "a host copy of the pipeline imports torch"
 print("host only")
 """
+
+
+_HOST_TOOLS = r"""
+import sys
+from youtube_vln_tpu_torch.data.store import convert_lmdb, merge_stores
+from youtube_vln_tpu_torch.pipeline import assets, frames
+from youtube_vln_tpu_torch.utils import file_cache, measure
+from youtube_vln_tpu_torch.entries import (bench_loader, convert_lmdb as convert_entry,
+                                           extract_frames, merge_stores as merge_entry)
+assert "torch" not in sys.modules, "a host tool imports torch"
+print("host only")
+"""
+
+
+def test_host_tools_import_no_torch():
+    """The store converters, the frame and asset steps, the file cache, the
+    shared measurement helpers, ``bench_loader`` and the host entries run
+    without torch."""
+    r = _run(["-c", _HOST_TOOLS], REPO)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert r.stdout.strip().endswith("host only")
 
 
 def test_pipeline_host_copies_import_no_torch():

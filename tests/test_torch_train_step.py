@@ -285,6 +285,25 @@ def test_steps_refuse_a_missing_head():
         pts.build_train_step(model, cfg, args, optimizer, device="cpu")
 
 
+@pytest.mark.parametrize("mode", ["in_batch_pairs", "fast_mode"])
+def test_batch_expansion_refused_under_a_data_axis(mode, monkeypatch):
+    """``in_batch_pairs`` and ``fast_mode`` expand the global batch in the
+    JAX step and a rank's rows here: under a data axis above 1 both step
+    builders refuse them before any step runs; in one process they build
+    (their outputs against JAX: ``test_torch_model.py``)."""
+    cfg = tiny_config(**{mode: True}, compute_dtype="float32")
+    model = Lily(cfg, device="cpu").init_weights(0)
+    args = RunConfig(ranking=True)
+    optimizer, _ = pts.create_train_state(model, args, steps_per_epoch=1)
+    pts.build_train_step(model, cfg, args, optimizer, device="cpu")
+    pts.build_eval_step(model, cfg, args, device="cpu")
+    monkeypatch.setattr(pts.distributed, "data_world", lambda: 2)
+    with pytest.raises(ValueError, match=f"{mode} expands the global batch"):
+        pts.build_train_step(model, cfg, args, optimizer, device="cpu")
+    with pytest.raises(ValueError, match=f"{mode} expands the global batch"):
+        pts.build_eval_step(model, cfg, args, device="cpu")
+
+
 @pytest.mark.parametrize("overrides,valid", [
     (dict(), False),                                      # no objective
     (dict(ranking=True), True),

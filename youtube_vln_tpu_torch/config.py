@@ -282,6 +282,8 @@ class RunConfig:
                                         # the backward
     profile_dir: str = ""               # torch.profiler trace of steps
                                         # 2-8 of the first epoch
+    compilation_cache_dir: str = ""     # where the CUDA kernels are built
+                                        # and loaded ("": build/kernels)
     host_prefetch: int = 2              # batches copied ahead of their use
     orbax_checkpoints: bool = False     # torch.distributed.checkpoint
                                         # directories written by every rank

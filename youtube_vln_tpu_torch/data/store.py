@@ -1,6 +1,6 @@
 """VLN feature store — the replacement for the reference's LMDB databases
 (``utils/dataset/features_reader.py:16-66``); a copy of
-``youtube_vln_tpu/data/store.py`` without its converters (``merge_stores``,
+``youtube_vln_tpu/data/store.py`` with its converters (``merge_stores``,
 ``convert_lmdb``), reading and writing the same files.
 
 The reference stores pickled dicts with base64-encoded float buffers inside
@@ -23,7 +23,8 @@ Readers: a C++ mmap reader (native/vlnstore.cc, loaded via ctypes) for the
 hot path, with a pure-Python mmap fallback with identical semantics.  The
 shared library is located from the root of the checkout (``native/``), and
 built there with ``make`` on first use when it is missing; ``get_native()``
-is None when neither works.
+is None when neither works.  ``convert_lmdb`` reads the reference's LMDB
+databases through the optional ``lmdb`` package, imported inside the call.
 """
 from __future__ import annotations
 
@@ -33,7 +34,7 @@ import mmap
 import struct
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Dict, List, Optional, Tuple, Union
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
@@ -524,3 +525,105 @@ class Store:
             # mapping is released when they are garbage collected
             pass
         self._file.close()
+
+
+# --------------------------------------------------------------------------- #
+# converters
+# --------------------------------------------------------------------------- #
+def merge_stores(paths: Sequence[Union[str, Path]],
+                 out_path: Union[str, Path]) -> int:
+    """Merge several store shards into ONE store file (streaming, zero-copy
+    record views).  Duplicate keys resolve LAST-shard-wins — the same
+    semantics as opening the shards as a multi-shard FeaturesReader
+    (features_reader.py merges key spaces in shard order, reference
+    :17-42).
+
+    Why: the native path packers only engage when every key of a path
+    lives in one shard (a packed path is one C call against one mmap);
+    a reference-layout migration (11 LMDBs -> 11 stores via
+    convert_lmdb) would silently fall back to the ~3x slower Python
+    assembly for any path spanning shards.  Merge once offline, read one
+    store forever.  Returns the merged record count."""
+    winner: Dict[str, int] = {}
+    stores: List[Store] = []
+    try:
+        # open inside the try — a corrupt later shard must not leak the
+        # mmaps/fds/native handles of the shards already opened
+        for p in paths:
+            stores.append(Store(p))
+        for i, s in enumerate(stores):
+            for k in s.keys:
+                winner[k] = i
+        n = 0
+        with StoreWriter(out_path) as w:
+            for i, s in enumerate(stores):
+                for k in s.keys:
+                    if winner[k] != i:
+                        continue  # a later shard overrides this key
+                    w.add(k, s.get(k))
+                    n += 1
+        return n
+    finally:
+        for s in stores:
+            s.close()
+
+
+def convert_lmdb(lmdb_path: Union[str, Path], out_path: Union[str, Path],
+                 pano: bool = False) -> int:
+    """Convert a reference LMDB (pickled dicts, features_reader.py:124-150 /
+    193-233 formats) into a VLN store.  Requires the ``lmdb`` package."""
+    import base64
+    import pickle
+
+    try:
+        import lmdb
+    except ImportError as e:  # lmdb is optional
+        raise RuntimeError(
+            "lmdb is not installed; convert on a machine that has it") from e
+
+    env = lmdb.open(str(lmdb_path), readonly=True, lock=False)
+    n = 0
+    with StoreWriter(out_path) as w, env.begin(write=False) as txn:
+        keys = pickle.loads(txn.get(b"keys"))
+        for bkey in keys:
+            item = pickle.loads(txn.get(bkey))
+            key = bkey.decode()
+
+            def dec(name_old, name_new, dim):
+                if name_old in item:
+                    a = np.frombuffer(item[name_old], dtype=np.float32)
+                else:
+                    a = np.frombuffer(base64.b64decode(item[name_new]),
+                                      dtype=np.float32)
+                return a.reshape((-1, dim))
+
+            if pano:
+                feats = np.frombuffer(base64.b64decode(item["features"]),
+                                      np.float32).reshape(-1, FEAT_DIM)
+                boxes = np.frombuffer(base64.b64decode(item["boxes"]),
+                                      np.float32).reshape(-1, BOX_DIM)
+                probs = np.frombuffer(base64.b64decode(item["cls_prob"]),
+                                      np.float32).reshape(-1, PROB_DIM)
+                b64v = lambda f: np.frombuffer(base64.b64decode(item[f]),
+                                               np.float32)
+                rec = StoreRecord(
+                    len(boxes), int(item["image_w"]), int(item["image_h"]),
+                    feats, boxes, probs,
+                    view_heading=b64v("viewHeading"),
+                    view_elevation=b64v("viewElevation"),
+                    feat_heading=b64v("featureHeading"),
+                    feat_elevation=b64v("featureElevation"),
+                    feat_view_index=b64v("featureViewIndex"))
+            else:
+                old = "image_width" in item
+                feats = dec("feature", "features", FEAT_DIM)
+                boxes = dec("bbox", "boxes", BOX_DIM)
+                probs = dec("cls_prob", "cls_prob", PROB_DIM)
+                rec = StoreRecord(
+                    len(boxes),
+                    int(item["image_width" if old else "image_w"]),
+                    int(item["image_height" if old else "image_h"]),
+                    feats, boxes, probs)
+            w.add(key, rec)
+            n += 1
+    return n

@@ -20,6 +20,7 @@ from ..data.loader import Loader
 from ..device import resolve_device
 from ..evaluation.beam_eval import convert_scores, eval_epoch
 from ..models import Lily
+from ..ops._build import set_build_dir
 from ..training.checkpoint import load_checkpoint
 from ..training.engine import load_beam_dataset, resolve_tokenizer
 from ..utils.cli import args_to_run_config, get_parser
@@ -43,6 +44,7 @@ def main(argv=None) -> str:
     ns.ranking = True
     args = args_to_run_config(ns)
     device = resolve_device(ns.device)
+    set_build_dir(args.compilation_cache_dir)
 
     set_seed(args.seed)
 

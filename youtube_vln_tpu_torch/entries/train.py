@@ -22,6 +22,7 @@ broadcast, so no rank waits at a collective save that another skips.
 from pathlib import Path
 
 from ..device import resolve_device
+from ..ops._build import set_build_dir
 from ..parallel.distributed import (broadcast_host, initialize,
                                     is_main_process, rank)
 from ..training import checkpoint as ckpt
@@ -34,10 +35,12 @@ from ..utils.misc import (NoneLogger, dump_config, get_logger, get_output_dir,
 
 def start(ns, args):
     """The set-up common to the training entries, in order: the device
-    and the process group (``initialize``), the seeds, the run folders
+    and the process group (``initialize``), the kernels' build directory
+    (``--compilation_cache_dir``), the seeds, the run folders
     (``open_run``), the model config and, on rank 0, its dump and the code
     snapshot.  Returns (device, model_save_path, logger, writer, cfg)."""
     device = initialize(resolve_device(ns.device))
+    set_build_dir(args.compilation_cache_dir)
     set_seed(args.seed, rank())
     save_folder, model_save_path, logger, writer = open_run(ns, is_main_process())
     cfg = build_model_config(args)

@@ -1,11 +1,13 @@
 """Builds the port's CUDA kernels with ``nvcc`` and loads them with ctypes.
 
 Each source under ``csrc/`` becomes one shared library with a plain C
-interface in ``build/kernels/`` at the root of the checkout (listed in
-``.gitignore``), named by a hash of its source, of every header under
-``csrc/`` and of the compiler flags, so an edited kernel or shared header
-is rebuilt.  Nothing is built at import time: ``load`` builds on first use,
-and ``build_all`` starts one ``nvcc`` per source, all at once.
+interface in the build directory, ``build/kernels/`` at the root of the
+checkout (listed in ``.gitignore``) unless ``set_build_dir`` names another
+(the entries' ``--compilation_cache_dir``), named by a hash of its source,
+of every header under ``csrc/`` and of the compiler flags, so an edited
+kernel or shared header is rebuilt.  Nothing is built at import time:
+``load`` builds on first use, and ``build_all`` starts one ``nvcc`` per
+source, all at once.
 """
 from __future__ import annotations
 
@@ -24,6 +26,18 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+_build_dir = BUILD_DIR
+
+
+def set_build_dir(path) -> None:
+    """Build and load the kernels under ``path`` from now on (``""`` or
+    None: ``BUILD_DIR``); a library loaded already stays loaded."""
+    global _build_dir
+    _build_dir = Path(path) if path else BUILD_DIR
+
+
+def build_dir() -> Path:
+    return _build_dir
 
 
 def nvcc_path() -> str:
@@ -38,14 +52,14 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    """``build/kernels/lib<name>_<hash>.so``; the hash covers the source,
+    """``<build dir>/lib<name>_<hash>.so``; the hash covers the source,
     every ``*.cuh`` under ``csrc/`` (any of them may be included) and the
     flags."""
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.name.encode() + header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:12]}.so"
+    return build_dir() / f"lib{name}_{h.hexdigest()[:12]}.so"
 
 
 def _start(name: str, verbose: bool) -> Tuple[Path, Path, subprocess.Popen]:
@@ -62,7 +76,7 @@ def build_all(names: Tuple[str, ...] = SOURCES,
               verbose: bool = False) -> Dict[str, str]:
     """Compiles every source not built yet, all ``nvcc`` processes in
     parallel.  Returns the compiler output by source name."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    build_dir().mkdir(parents=True, exist_ok=True)
     jobs: List[Tuple[str, Path, Path, subprocess.Popen]] = [
         (n, *_start(n, verbose)) for n in names
         if verbose or not library_path(n).exists()]

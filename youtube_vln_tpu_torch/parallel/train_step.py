@@ -243,6 +243,21 @@ def _sum_metrics(metrics: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     return dict(zip(keys, total))
 
 
+def _refuse_batch_expansion(cfg) -> None:
+    """``in_batch_pairs`` and ``fast_mode`` expand the batch inside the
+    encoder (``models/vilbert.py:Encoder.forward``).  The JAX step expands
+    the global batch (``parallel/train_step.py:289-308`` there); a rank here
+    holds only its rows of it, so under a data axis above 1 either mode
+    would pair other candidates.  Refused, as ``ModelShard.heads`` refuses
+    heads it cannot split."""
+    world = distributed.data_world()
+    for mode in ("in_batch_pairs", "fast_mode"):
+        if getattr(cfg, mode, False) and world > 1:
+            raise ValueError(f"{mode} expands the global batch, which no rank "
+                             f"holds under a data axis of {world}: run it in "
+                             "one process")
+
+
 def build_train_step(model: torch.nn.Module, cfg, args: RunConfig,
                      optimizer: torch.optim.Optimizer, device="cuda"
                      ) -> Callable[[Dict, int], Dict[str, torch.Tensor]]:
@@ -257,6 +272,7 @@ def build_train_step(model: torch.nn.Module, cfg, args: RunConfig,
     synchronises the gradients at the last micro-step alone."""
     device = resolve_device(device)
     _check_model(model, cfg, args, device)
+    _refuse_batch_expansion(cfg)
     tasks = _task_config(args, training=True)
     accum = args.gradient_accumulation_steps
     params = [p for p in model.parameters() if p.requires_grad]
@@ -311,6 +327,7 @@ def build_eval_step(model: torch.nn.Module, cfg, args: RunConfig,
     own: the caller sums both over the data ranks (``Engine.evaluate``)."""
     device = resolve_device(device)
     _check_model(model, cfg, args, device)
+    _refuse_batch_expansion(cfg)
     tasks = _task_config(args, training=False)
     total_counts = (distributed.sum_across_data
                     if torch.distributed.is_initialized() else None)

@@ -2,6 +2,10 @@
 ``youtube_vln_tpu/pipeline/``, the 10-step recipe of scripts/README.md).
 
 Steps and their homes:
+  1-2 video download (gated) and ffmpeg
+       frame extraction                     -> frames.py
+      the asset manifest and distance
+       tables                               -> assets.py
   3  region features (detector protocol,
        multi-process sharded driver)        -> detector.py, extraction.py
   4  TSV -> feature-store conversion        -> detector.py
@@ -19,7 +23,7 @@ Steps and their homes:
 The models run on the device of their module (``device="cuda"`` unless the
 caller asks for the CPU), in float32 as the JAX pipeline runs; every
 preprocessor resizes as ``jax.image.resize`` does (``resize.py``).
-``detector``, ``extraction``, ``build_dataset``, ``merge_photos`` and
-``clip_captions`` are host code that imports no torch.  Steps 1-2 (video
-download and frame extraction) are not ported.
+``frames``, ``assets``, ``detector``, ``extraction``, ``build_dataset``,
+``merge_photos`` and ``clip_captions`` are host code that imports no
+torch.
 """

@@ -64,6 +64,7 @@ from ..models.weights import (_key_map, full_shapes, normalize_state_dict,
                               shard_state_dict, state_dict_from_jax_params)
 from ..parallel.mesh import param_spec
 from ..parallel.tensor import ModelShard, unshard_tensor
+from ..utils.file_cache import cached_path
 
 logger = logging.getLogger(__name__)
 
@@ -243,16 +244,17 @@ def save_checkpoint(save_dir, save_name, model: torch.nn.Module,
 
 def resolve_pretrained(path) -> Tuple[str, Optional[str]]:
     """Reference ``from_pretrained`` path semantics (vilbert.py:1014-1093)
-    without downloads: a directory means ``<dir>/pytorch_model.bin``; a
-    ``.bin``/``.pth``/``.pt`` file is used as-is; anything else is a
-    ``.tar.gz`` archive, extracted to a temporary directory whose
-    ``pytorch_model.bin`` is loaded.  Returns (weights_path, tempdir); the
-    caller removes tempdir (if not None) after loading."""
+    without downloads: a URL resolves to its entry in the offline file
+    cache (``utils/file_cache.py:cached_path``); a directory means
+    ``<dir>/pytorch_model.bin``; a ``.bin``/``.pth``/``.pt`` file is used
+    as-is; anything else is a ``.tar.gz`` archive, extracted to a temporary
+    directory whose ``pytorch_model.bin`` is loaded.  Returns
+    (weights_path, tempdir); the caller removes tempdir (if not None) after
+    loading."""
     path = str(path)
     if "://" in path:
-        raise ValueError(f"--from_pretrained {path!r} is a URL; this package "
-                         "reads local files only: download it and pass the "
-                         "path")
+        url, path = path, os.fspath(cached_path(path))
+        logger.info("loading archive file %s from cache at %s", url, path)
     if os.path.isdir(path):
         return os.path.join(path, "pytorch_model.bin"), None
     if path.endswith((".bin", ".pth", ".pt")):

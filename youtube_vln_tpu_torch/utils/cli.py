@@ -9,8 +9,11 @@ args fold into one :class:`~youtube_vln_tpu_torch.config.RunConfig`;
 (``parallel/mesh.py``: data parallelism and tensor parallelism; the
 Engine refuses a shape whose product is not the world size) and
 ``--orbax_checkpoints`` saves ``torch.distributed.checkpoint`` directories.
-The flag of the JAX package with no counterpart here yet
-(``--compilation_cache_dir``) is refused unless left at its default.
+``--compilation_cache_dir DIR`` is where the entries build and load the
+CUDA kernels (``ops/_build.py:set_build_dir``), the counterpart of the XLA
+compilation cache.  A flag of the JAX package with no counterpart here yet
+would be listed in ``TPU_ONLY`` and refused unless left at its default;
+none is left.
 
 Note: the reference's ``boolean_string`` helper returns False for every
 accepted input (cli.py:4-9), making ``--in_memory`` and
@@ -27,9 +30,7 @@ from ..config import RunConfig
 from ..parallel.mesh import mesh_extents
 
 # flag -> (default, the ROADMAP.md item that will port it)
-TPU_ONLY = {
-    "compilation_cache_dir": ("", "A13 (tooling)"),
-}
+TPU_ONLY: dict = {}
 
 
 def boolean_string(s: str) -> bool:
@@ -152,9 +153,7 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("--np", action="store_true", default=False)
     p.add_argument("--window", default=20, type=int)
 
-    # transport and kernels, in the JAX parser's order; the flag with no
-    # counterpart here yet is accepted at its default and refused
-    # otherwise (TPU_ONLY names the item that will port it)
+    # transport and kernels, in the JAX parser's order
     tpu = p.add_argument_group("transport and kernels")
     tpu.add_argument("--mesh_shape", nargs="*", type=int, default=[])
     tpu.add_argument("--mesh_axes", nargs="*", type=str,
