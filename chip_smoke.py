@@ -123,8 +123,19 @@ Phases, each fatal on failure:
      equal to the ranks' gathered weights and moments; (c) the MRT pretrain
      entry under ``--mesh_shape 1 2`` with the epilogue kernels, 2 steps:
      6 launches of B1-B4 and 24 of B5/B6 per micro-step per rank, every B5
-     output bitwise equal on the two ranks; prints a ``tp`` JSON line (gloo
-     times, not a speed number);
+     output bitwise equal on the two ranks; (d) eight gloo child ranks on
+     the card under ``--mesh_shape 1 8`` at full width and depth, where
+     the 12 text heads split (each rank attends on the 2 heads that cover
+     its 96 features): the 30RS entry of (b) in f32 against (b)'s one
+     process (1e-4 relative), its gathered ``0.bin`` in keys and shapes,
+     in bf16 at dropout 0.1 the replicated parameters bitwise equal across
+     the eight ranks, 6 launches of B1-B4 per micro-step per rank; (e)
+     B1-B4 on the heads that cover each coordinate of a model axis of 16
+     (half a head each) at the train shapes, in one process: the kept
+     contexts bitwise the full launch's, the gradients of the kept
+     features summed over the coordinates within 1e-5 relative L2 (f32);
+     prints a ``tp`` JSON line with the card (gloo times, not a speed
+     number);
  16a. the legacy ViLBERT heads at full width: ``BertForMultiModalPreTraining``
      and ``VILBertForVLTasks`` with ``SimpleClassifier(1024, 2048, 3129)``
      (``lily_base_config``, random weights from the seed, bf16) on 32 rows x
@@ -175,7 +186,7 @@ Phases, each fatal on failure:
  18. a ``kernels`` JSON line: per kernel its launches on the eval, the
      fine-tuning, the pretraining, the test entry (run A), the train entry,
      the pretrain entry, the data-parallel (phase 14 b and c, every rank),
-     the tensor-parallel (phase 15 b and c, every rank), the legacy-head
+     the tensor-parallel (phase 15 b, c and d, every rank), the legacy-head
      (phase 16a) and the tools (phase 17) paths, error,
      time, bound, plain time
      and a library call's time at the train shapes (B1/B2 also at the eval
@@ -230,6 +241,8 @@ TOL = {"bfloat16": 1e-2, "float32": 1e-3}
 
 # seconds per phase of this run (``phase_timer``), printed before the kernels line
 PHASE_S = {}
+# the card's name and power limit (nvidia-smi), printed beside every time
+CARD = ""
 
 
 @contextlib.contextmanager
@@ -2495,8 +2508,11 @@ def ddp_path(seed, root, recipe, pre_paths, unwrapped_ms):
 # phase 15: tensor parallelism over heads
 # --------------------------------------------------------------------------- #
 TP_MODEL = 2                       # the model axis of the children
-TP_BATCH = 8                       # global batch: two ranks share one card
+TP_BATCH = 8                       # global batch: the ranks share one card
 TP_LOSS_RTOL = 1e-4                # f32 (1, 2) against one process
+TP_WIDE = 8                        # phase 15d: the text heads split (1.5 per rank)
+TP_COVER = 16                      # phase 15e: every kernel site's heads split
+COVER_RTOL = 1e-5                  # f32 gradients summed over covering heads, rel-L2
 
 
 def head_shard_checks(seed):
@@ -2611,6 +2627,112 @@ def head_shard_checks(seed):
     return n_checked
 
 
+def cover_checks(seed):
+    """Phase 15e: B1-B4 at the 30RS train shapes (96 x 8 heads of 128, bf16
+    and f32, dropout 0 and 0.1) on the geometry of a model axis of 16, where
+    each coordinate holds 64 features, half a head, at every kernel site.
+    Each coordinate launches B1 / B2 on the heads that cover its features
+    (``ModelShard.heads``: ``head0`` r // 2 of ``heads_total`` 8) and keeps
+    its 64 features: joined over the coordinates, bitwise the full launch's
+    contexts.  Each launches B3 / B4 with a gradient on its kept features
+    alone; summed over the coordinates, the gradients on the full heads
+    match the full launch's within ``COVER_RTOL`` relative L2 in f32 and
+    ``TOL`` in bf16 (the gradient is linear in the cotangent).  One process
+    stands for the 16: the kernel half of the covering-heads path.
+    Returns (launches compared, the worst f32 relative L2 per kernel)."""
+    import torch
+    from youtube_vln_tpu_torch.ops import attention as A
+    from youtube_vln_tpu_torch.parallel.tensor import ModelShard
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 16)
+    s_v, bh, d = L * BOXES, TRAIN_B * TRAIN_NC, 128
+    f = HEADS * d // TP_COVER
+    covers = [ModelShard(r, TP_COVER).heads(HEADS, HEADS * d) for r in range(TP_COVER)]
+    drop_seed = 0x7EA + seed
+    worst = {"B3": 0.0, "B4": 0.0}
+    n_checked = 0
+
+    def merged(x):
+        """[B, n, S, D] -> [B, S, n * D]."""
+        return x.transpose(1, 2).reshape(x.shape[0], x.shape[2], -1)
+
+    def kept_cotangent(do, r, n, off):
+        """The cotangent of coordinate r's covering heads: its own features'
+        of ``do``, zero elsewhere."""
+        b, _, s, _ = do.shape
+        part = torch.zeros(b, s, n * d, dtype=do.dtype, device="cuda")
+        part[..., off:off + f] = merged(do)[..., r * f:(r + 1) * f]
+        return part.view(b, s, n, d).transpose(1, 2)
+
+    def compare(kernel, what, summed, full, dtype):
+        for i, (got, want) in enumerate(zip(summed, full)):
+            name = f"{kernel} gradient {i} summed over the covering heads of M = {TP_COVER}, {what}"
+            if dtype == torch.float32:
+                rel = float((got - want).norm() / want.norm())
+                worst[kernel] = max(worst[kernel], rel)
+                if not rel <= COVER_RTOL:
+                    fail(f"{name}: relative L2 {rel} above {COVER_RTOL}")
+            else:
+                check(name, got, want, TOL["bfloat16"], floor=0.0, verbose=False)
+
+    for dtype in (torch.bfloat16, torch.float32):
+        for rate in (0.0, RATE):
+            what = f"{str(dtype).split('.')[1]}, dropout {rate}"
+            # B1 / B3: vision self-attention
+            q, k, v, do = (heads_view(gen, bh, HEADS, s_v, d, dtype) for _ in range(4))
+            bias = key_bias(gen, bh, s_v)
+            out, lse, _ = A._attention_fwd(q, k, v, bias, rate, drop_seed, True)
+            grads = A._attention_bwd(q, k, v, bias, out, do, lse, rate, drop_seed)
+            kept, summed = [], [torch.zeros(g.shape, device="cuda") for g in grads]
+            for r, (n, head0, off) in enumerate(covers):
+                hs = slice(head0, head0 + n)
+                ops = [x[:, hs] for x in (q, k, v)]
+                o, ls, _ = A._attention_fwd(*ops, bias, rate, drop_seed, True, 0, head0, HEADS)
+                kept.append(merged(o)[..., off:off + f])
+                g = A._attention_bwd(*ops, bias, o, kept_cotangent(do, r, n, off), ls, rate,
+                                     drop_seed, 0, head0, HEADS)
+                for acc, gi in zip(summed, g):
+                    acc[:, hs] += gi.float()
+                n_checked += 2
+            same_bits(f"B1 on the covering heads of M = {TP_COVER}, {what}",
+                      (torch.cat(kept, -1),), (merged(out),))
+            compare("B3", what, summed, [g.float() for g in grads], dtype)
+            del q, k, v, do, bias, out, lse, grads, kept, summed
+
+            # B2 / B4: co-attention 60 <-> 808
+            vis = [heads_view(gen, bh, HEADS, s_v, d, dtype) for _ in range(3)]
+            txt = [heads_view(gen, bh, HEADS, S_T, d, dtype) for _ in range(3)]
+            vb, tb = key_bias(gen, bh, s_v), key_bias(gen, bh, S_T)
+            do1 = heads_view(gen, bh, HEADS, S_T, d, dtype)
+            do2 = heads_view(gen, bh, HEADS, s_v, d, dtype)
+            *fwd, _ = A._bi_attention_fwd(*vis, *txt, vb, tb, rate, rate, drop_seed, True)
+            grads = A._bi_attention_bwd(*vis, *txt, vb, tb, *fwd, do1, do2, rate, rate,
+                                        drop_seed)
+            kept, summed = [[], []], [torch.zeros(g.shape, device="cuda") for g in grads]
+            for r, (n, head0, off) in enumerate(covers):
+                hs = slice(head0, head0 + n)
+                ops = [x[:, hs] for x in vis + txt]
+                *fr, _ = A._bi_attention_fwd(*ops, vb, tb, rate, rate, drop_seed, True, 0,
+                                             head0, HEADS)
+                for side, ctx in zip(kept, fr[:2]):
+                    side.append(merged(ctx)[..., off:off + f])
+                g = A._bi_attention_bwd(*ops, vb, tb, *fr, kept_cotangent(do1, r, n, off),
+                                        kept_cotangent(do2, r, n, off), rate, rate,
+                                        drop_seed, 0, head0, HEADS)
+                for acc, gi in zip(summed, g):
+                    acc[:, hs] += gi.float()
+                n_checked += 2
+            same_bits(f"B2 on the covering heads of M = {TP_COVER}, {what}",
+                      [torch.cat(side, -1) for side in kept], [merged(x) for x in fwd[:2]])
+            compare("B4", what, summed, [g.float() for g in grads], dtype)
+            del vis, txt, vb, tb, do1, do2, fwd, grads, kept, summed
+            torch.cuda.empty_cache()
+    print(f"covering heads: {n_checked} launches of B1-B4 on the heads that cover a "
+          f"coordinate of M = {TP_COVER}; contexts bitwise the full launch's, summed f32 "
+          f"gradients within {worst} relative L2")
+    return n_checked, worst
+
+
 def bits_digest(t) -> int:
     """A digest of the bits of ``t`` (two tensors with one digest are equal
     bit for bit, up to a collision of the weighted sum)."""
@@ -2675,6 +2797,46 @@ def child_tp_mrt(run, spec):
     return out
 
 
+def check_tp_states(name, states, model):
+    """Fatal unless the model ranks ``states`` (``tp_state``) sit at mesh
+    coordinates (0, m), hold every replicated parameter bitwise equal and
+    no sharded weight matrix equal to rank 0's (a zero bias that no task
+    trains may agree)."""
+    if [s["mesh"] for s in states] != [[0, m] for m in range(model)]:
+        fail(f"{name}: mesh coordinates {[s['mesh'] for s in states]}")
+    differ = [n for n, d in states[0]["replicated"].items()
+              if any(s["replicated"][n] != d for s in states[1:])]
+    same = [n for n, d in states[0]["sharded"].items() if n.endswith("weight")
+            and any(s["sharded"][n] == d for s in states[1:])]
+    print(f"{name}: {len(states[0]['replicated'])} replicated parameters, "
+          f"{len(differ)} differ across the {model} model ranks; "
+          f"{len(states[0]['sharded'])} sharded, {len(same)} equal")
+    if differ or same or not states[0]["sharded"]:
+        fail(f"{name}: replicated parameters that differ {differ[:3]}, sharded "
+             f"ones that agree {same[:3]}")
+
+
+def bin_shapes(path):
+    """{key: shape} of a ``.bin``'s weights and of its first moments."""
+    import torch
+    b = torch.load(path, map_location="cpu", weights_only=True, mmap=True)
+    return ({k: tuple(v.shape) for k, v in b["model_state_dict"].items()},
+            {k: tuple(v.shape) for k, v in b["optimizer_state_dict"]["exp_avg"].items()})
+
+
+def losses_against_one(name, got, one):
+    """Fatal unless ``got`` has ``one``'s steps and every loss within
+    ``TP_LOSS_RTOL`` relative; returns the largest relative difference."""
+    rel = max(abs(g[k] - w[k]) / max(abs(w[k]), 1e-12)
+              for g, w in zip(got, one) for k in w)
+    print(f"{name} against one process: losses {got} against {one}, max relative "
+          f"difference {rel:.3e}")
+    if len(got) != len(one) or len(one) != 2 or not rel <= TP_LOSS_RTOL:
+        fail(f"{name}: {len(got)} steps against {len(one)}, relative difference "
+             f"{rel} above {TP_LOSS_RTOL}")
+    return rel
+
+
 def tp_path(seed, root, common, pre_paths, pre_data_dir):
     """Phase 15: tensor parallelism over heads.  (a) ``head_shard_checks``;
     (b) the 30RS train entry at full width under ``--mesh_shape 1 2`` in two
@@ -2686,9 +2848,16 @@ def tp_path(seed, root, common, pre_paths, pre_data_dir):
     process equal to the ranks' gathered weights and moments; (c) the MRT
     pretrain entry under ``--mesh_shape 1 2`` with the epilogue kernels, 2
     steps: 6 launches of B1-B4 and 24 of B5/B6 per micro-step per rank,
-    every LN output of B5 bitwise equal on the two ranks.  Gloo moves every
-    all-reduce through host memory: the times are not a speed number.
-    Returns the launch counts of (b) and (c), every rank summed."""
+    every LN output of B5 bitwise equal on the two ranks; (d) the 30RS
+    entry of (b) under ``--mesh_shape 1 8`` in eight gloo children, where
+    each rank holds 1.5 of the 12 text heads and attends on the 2 that
+    cover them: f32 against (b)'s one process (1e-4 relative), its gathered
+    ``0.bin`` in keys and shapes, bf16 at dropout 0.1 with the replicated
+    parameters bitwise equal across the eight ranks, 6 launches of B1-B4
+    per micro-step per rank (12 of B1/B2 with ``--remat``); (e)
+    ``cover_checks``, run after (a).  Gloo moves every collective through
+    host memory: the times are not a speed number.  Returns the launch
+    counts of (b), (c) and (d), every rank summed."""
     import torch
     from youtube_vln_tpu_torch import lily_base_config
     from youtube_vln_tpu_torch.data.fixtures import build_r2r_fixture
@@ -2699,6 +2868,10 @@ def tp_path(seed, root, common, pre_paths, pre_data_dir):
     from youtube_vln_tpu_torch.utils.cli import parse_run_config
 
     n_shards = head_shard_checks(seed)
+    t0 = time.perf_counter()
+    n_cover, cover_worst = cover_checks(seed)
+    cover_s = time.perf_counter() - t0
+    PHASE_S["15e covering heads"] = round(cover_s, 1)
     root = Path(root)
     result = root / "tp_result"
     r2r = build_r2r_fixture(root / "r2r_tp", k_boxes=BOXES - 1, n_beams=NC, path_len=L,
@@ -2748,48 +2921,44 @@ def tp_path(seed, root, common, pre_paths, pre_data_dir):
         if any(l != per_rank[0] for l in per_rank):
             fail(f"{name}: the model ranks' losses differ: {per_rank}")
     tp_f32 = c[0]["TP 30RS f32"]["losses"]
-    rel = max(abs(g[k] - w[k]) / max(abs(w[k]), 1e-12)
-              for g, w in zip(tp_f32, one) for k in w)
-    print(f"f32 30RS, 1 x {TP_MODEL} against one process: losses {tp_f32} against "
-          f"{one}, max relative difference {rel:.3e}")
-    if len(tp_f32) != len(one) or len(one) != 2 or not rel <= TP_LOSS_RTOL:
-        fail(f"f32 30RS under --mesh_shape 1 {TP_MODEL}: {len(tp_f32)} steps against "
-             f"{len(one)}, relative difference {rel} above {TP_LOSS_RTOL}")
-    one_bin = torch.load(result / "tp_one" / "data" / "0.bin", map_location="cpu",
-                         weights_only=True, mmap=True)
-    tp_bin = torch.load(result / "tp_f32" / "data" / "0.bin", map_location="cpu",
-                        weights_only=True, mmap=True)
-    shapes = [{k: tuple(v.shape) for k, v in b["model_state_dict"].items()}
-              for b in (one_bin, tp_bin)]
-    moments = [{k: tuple(v.shape) for k, v in b["optimizer_state_dict"]["exp_avg"].items()}
-               for b in (one_bin, tp_bin)]
-    if shapes[0] != shapes[1] or moments[0] != moments[1]:
-        fail("the gathered .bin of --mesh_shape 1 2 differs from the one process's in "
-             "keys or shapes")
-    del one_bin, tp_bin
+    rel = losses_against_one(f"f32 30RS under --mesh_shape 1 {TP_MODEL}", tp_f32, one)
+    one_shapes = bin_shapes(result / "tp_one" / "data" / "0.bin")
+    if bin_shapes(result / "tp_f32" / "data" / "0.bin") != one_shapes:
+        fail(f"the gathered .bin of --mesh_shape 1 {TP_MODEL} differs from the one "
+             "process's in keys or shapes")
 
     # bf16 with dropout: replicated parameters equal across the model ranks
     for name in ("TP 30RS bf16", "TP MRT"):
-        states = [r[name]["state"] for r in c]
-        if [s["mesh"] for s in states] != [[0, m] for m in range(TP_MODEL)]:
-            fail(f"{name}: mesh coordinates {[s['mesh'] for s in states]}")
-        differ = [n for n, d in states[0]["replicated"].items()
-                  if any(s["replicated"][n] != d for s in states[1:])]
-        # a sharded weight matrix differs between the ranks (a zero bias
-        # that no task trains may not)
-        same = [n for n, d in states[0]["sharded"].items() if n.endswith("weight")
-                and any(s["sharded"][n] == d for s in states[1:])]
-        print(f"{name}: {len(states[0]['replicated'])} replicated parameters, "
-              f"{len(differ)} differ across the model ranks; {len(states[0]['sharded'])} "
-              f"sharded, {len(same)} equal")
-        if differ or same or not states[0]["sharded"]:
-            fail(f"{name}: replicated parameters that differ {differ[:3]}, sharded "
-                 f"ones that agree {same[:3]}")
+        check_tp_states(name, [r[name]["state"] for r in c], TP_MODEL)
     digests = [r["TP MRT"]["ln_digests"] for r in c]
     if len(digests[0]) != c[0]["TP MRT"]["launches"]["epilogue_fwd"] or any(
             d != digests[0] for d in digests[1:]):
         fail(f"TP MRT: {len(digests[0])} B5 outputs, equal across the ranks: "
              f"{[d == digests[0] for d in digests]}")
+
+    # (d) --mesh_shape 1 8: the text self-attention's 12 heads of 64 over
+    # 96 features a rank, split at every text layer (the vision and
+    # co-attention sites hold one whole head a rank)
+    t_wide = time.perf_counter()
+    wide_mesh = ["--mesh_shape", "1", str(TP_WIDE)]
+    wide_runs = ("TP 1x8 30RS f32", "TP 1x8 30RS bf16")
+    w = run_children("tp_gloo_1x8", TP_WIDE, {"backend": "gloo", "seed": seed, "runs": [
+        dict(name=wide_runs[0], kind="entry", per_micro=[2, 1],
+             argv=f32 + wide_mesh + ["--save_name", "tp8_f32"]),
+        dict(name=wide_runs[1], kind="entry", per_micro=[2, 1], tp=True,
+             argv=recipe + wide_mesh + ["--save_name", "tp8_bf16"])]}, root)
+    for name in wide_runs:
+        per_rank = [r[name]["losses"] for r in w]
+        if any(l != per_rank[0] for l in per_rank):
+            fail(f"{name}: the model ranks' losses differ: {per_rank}")
+    wide_f32 = w[0][wide_runs[0]]["losses"]
+    wide_rel = losses_against_one(f"f32 30RS under --mesh_shape 1 {TP_WIDE}", wide_f32, one)
+    if bin_shapes(result / "tp8_f32" / "data" / "0.bin") != one_shapes:
+        fail(f"the gathered .bin of --mesh_shape 1 {TP_WIDE} differs from the one "
+             "process's in keys or shapes")
+    check_tp_states(wide_runs[1], [r[wide_runs[1]]["state"] for r in w], TP_WIDE)
+    wide_s = time.perf_counter() - t_wide
+    PHASE_S["15d tp 1x8"] = round(wide_s, 1)
 
     # the (1, 2) .dcp resumed in one process: the ranks' gathered state
     cfg = lily_base_config()
@@ -2816,12 +2985,31 @@ def tp_path(seed, root, common, pre_paths, pre_data_dir):
     torch.cuda.empty_cache()
 
     launches = sum_launches(*[r[name]["launches"] for r in c
-                              for name in ("TP 30RS f32", "TP 30RS bf16", "TP MRT")])
+                              for name in ("TP 30RS f32", "TP 30RS bf16", "TP MRT")],
+                            *[r[name]["launches"] for r in w for name in wide_runs])
     print(json.dumps({
         "tp": f"phase 15: --mesh_shape 1 {TP_MODEL}, 2 gloo ranks on one card, "
-              f"global batch {TP_BATCH} (30RS) and {PRE_B} (MRT); gloo moves every "
-              f"all-reduce through host memory, so the times are not a speed number",
+              f"global batch {TP_BATCH} (30RS) and {PRE_B} (MRT); (d) --mesh_shape 1 "
+              f"{TP_WIDE}, {TP_WIDE} gloo ranks on one card, global batch {TP_BATCH}; "
+              f"gloo moves every collective through host memory, so the times are not "
+              f"a speed number",
+        "card": CARD,
         "head_shard_launches_bitwise_equal": n_shards,
+        "covering_heads_m16": {"launches": n_cover,
+                               "contexts": "bitwise the full launch's",
+                               "f32_grad_rel_l2": cover_worst,
+                               "f32_grad_rel_l2_limit": COVER_RTOL, "s": cover_s},
+        "mesh_1x8": {
+            "f32_losses": wide_f32, "f32_max_rel_diff": wide_rel,
+            "bf16_losses": w[0][wide_runs[1]]["losses"],
+            "replicated_parameters_bitwise_equal": len(w[0][wide_runs[1]]["state"]["replicated"]),
+            "peak_gib_per_rank": {name: [r[name]["peak_gib"] for r in w] for name in wide_runs},
+            "launches_per_rank": {name: [r[name]["launches"] for r in w] for name in wide_runs},
+            "gloo_not_speed": {"ms_per_step": {name: [r[name]["ms_per_step"] for r in w]
+                                               for name in wide_runs},
+                               "step_ms": {name: [r[name]["step_ms"] for r in w]
+                                           for name in wide_runs},
+                               "phase_s": wide_s}},
         "f32_losses": tp_f32, "one_process_f32_losses": one, "f32_max_rel_diff": rel,
         "peak_gib_per_rank": {name: [r[name]["peak_gib"] for r in c]
                               for name in ("TP 30RS f32", "TP 30RS bf16", "TP MRT")},
@@ -3518,10 +3706,12 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    global CARD
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
-    print(smi.stdout.strip().splitlines()[0])
+    CARD = smi.stdout.strip().splitlines()[0]
+    print(CARD)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
 

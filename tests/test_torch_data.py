@@ -304,3 +304,26 @@ def test_worker_pool_never_runs_out_of_slots():
     assert loader.shm_fallbacks == 0, loader.shm_fallbacks_by_reason
     got = np.concatenate([b["image_features"][:, 0, 0, 0] for b in batches])
     np.testing.assert_array_equal(got, np.arange(48))
+
+
+@pytest.mark.filterwarnings("error::pytest.PytestUnraisableExceptionWarning")
+def test_loader_stopped_mid_epoch_closes_its_slabs():
+    """A consumer that stops after one batch of a 2-worker Loader: the
+    items that still view a slab are dropped before the slabs close, so no
+    ``BufferError`` is raised from ``SharedMemory.__del__``."""
+    import gc
+    import sys
+
+    unraisable = []
+    hook, sys.unraisablehook = sys.unraisablehook, unraisable.append
+    try:
+        batches = iter(ploader.Loader(_Items(), 4, shuffle=False, drop_last=True,
+                                      num_workers=2))
+        first = next(batches)
+        batches.close()
+        del batches
+        gc.collect()
+    finally:
+        sys.unraisablehook = hook
+    assert not unraisable, [u.exc_value for u in unraisable]
+    np.testing.assert_array_equal(first["image_features"][:, 0, 0, 0], np.arange(4))

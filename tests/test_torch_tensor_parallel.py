@@ -12,11 +12,20 @@ the head-sharded site of the XLA path):
     full mask bit for bit, and the identity mapping is the mask without it;
   * the B1-B4 wrappers on each head shard at dropout 0.1 give the head
     slice of the full call's outputs and gradients within 1e-6 (f32);
+  * ``ModelShard.heads``' cover at the flagship's three attention sites
+    for M = 2, 4, 8 and 16: the kept features partition the layer's in
+    rank order, every head is covered, and where the heads divide each
+    rank covers its own heads;
   * ``param_spec`` against the JAX ``param_shardings`` on every leaf of
-    ``init_lily_params(lily_base_config)`` for M = 2 and 4, the layout
+    ``init_lily_params(lily_base_config)`` for M = 2, 4 and 8, the layout
     transposed, and the sharded ``Lily``'s own shapes against
-    ``shard_state_dict``; the round trip of ``shard_state_dict`` bitwise;
-    ``AdamWRef`` on the shards is the shard of ``AdamWRef`` on the whole;
+    ``shard_state_dict`` (M = 2 to 16); the round trip of
+    ``shard_state_dict`` bitwise; ``AdamWRef`` on the shards is the shard
+    of ``AdamWRef`` on the whole;
+  * ``gather_heads_from_model`` on two gloo ranks that keep different
+    slices of the gathered tensor: each rank's input gradient is the sum
+    of both ranks' contributions to its shard (``gather_from_model``'s is
+    not);
   * the train step under ``--mesh_shape 1 2`` and ``2 2`` (f32, dropout 0)
     against the JAX ``Engine``'s step on the same global batch: the loss
     within 1e-4 relative and every parameter after the step within 2e-5;
@@ -24,7 +33,9 @@ the head-sharded site of the XLA path):
     model axis (one process for ``1 2``, the data-parallel ``2 1`` for
     ``2 2``: the XLA path's generator is the data rank's): the losses of 2
     steps within 1e-5 relative, and the replicated parameters bitwise equal
-    across the model ranks.
+    across the model ranks.  Both again under ``1 2`` for a config of 3
+    heads at every site (text 48 = 3 x 16, vision and co-attention 192 = 3
+    x 64), where each rank's features start or end inside a head.
 
 ``tests/test_torch_tensor_parallel_entry.py`` holds the checkpoints and
 the MRT entry."""
@@ -41,8 +52,15 @@ from youtube_vln_tpu_torch.parallel.mesh import param_spec
 
 RATE = 0.1
 LOSS_TOL, PARAM_TOL, DROPOUT_LOSS_TOL = 1e-4, 2e-5, 1e-5
-# (D, M) meshes of the spawned runs
-MESHES = [(1, 2), (2, 2)]
+# (model config, (D, M) mesh) of the spawned runs
+MESHES = [("d64", (1, 2)), ("d64", (2, 2)), ("3heads", (1, 2))]
+MESH_IDS = ["1x2", "2x2", "1x2-3heads"]
+# the flagship's attention sites: (features, heads)
+FLAGSHIP_SITES = {"text": (768, 12), "vision": (1024, 8), "co-attention": (1024, 8)}
+# 3 heads at every site: under a model axis of 2 no rank holds whole heads
+THREE_HEADS = dict(hidden_size=48, num_attention_heads=3, v_hidden_size=192,
+                   v_num_attention_heads=3, bi_hidden_size=192,
+                   bi_num_attention_heads=3)
 
 
 # --------------------------------------------------------------------------- #
@@ -136,6 +154,38 @@ def test_attention_wrappers_on_head_shards(data, model):
 
 
 # --------------------------------------------------------------------------- #
+# the heads that cover a rank's features
+# --------------------------------------------------------------------------- #
+@pytest.mark.parametrize("model", [2, 4, 8, 16])
+@pytest.mark.parametrize("site", list(FLAGSHIP_SITES))
+def test_model_shard_cover_partitions_the_features(site, model):
+    """``ModelShard.heads`` at a flagship site: the features each rank keeps
+    of its covering heads are its own shard, so in rank order they
+    partition the layer's; the covering heads hold every head; where the
+    heads divide, each rank covers its own heads and nothing else."""
+    from youtube_vln_tpu_torch.parallel.tensor import HeadCover, ModelShard
+
+    hidden, num_heads = FLAGSHIP_SITES[site]
+    d, f = hidden // num_heads, hidden // model
+    kept, covered = [], set()
+    for r in range(model):
+        n, head0, off = ModelShard(r, model).heads(num_heads, hidden)
+        assert n >= 1 and 0 <= off < d and off + f <= n * d
+        kept.append((head0 * d + off, head0 * d + off + f))
+        covered.update(range(head0, head0 + n))
+        if num_heads % model == 0:
+            assert (n, head0, off) == (num_heads // model, r * num_heads // model, 0)
+        cover = HeadCover(ModelShard(r, model), num_heads, hidden)
+        assert cover.split == (num_heads % model != 0)
+        assert (cover.width, cover.span) == (f, slice(head0 * d, (head0 + n) * d))
+    assert kept == [(r * f, (r + 1) * f) for r in range(model)]
+    assert covered == set(range(num_heads))
+    # an axis that divides neither the features nor the heads: all heads
+    assert ModelShard(1, 5).heads(num_heads, hidden) == (num_heads, 0, 0)
+    assert not HeadCover(ModelShard(1, 5), num_heads, hidden).split
+
+
+# --------------------------------------------------------------------------- #
 # the sharding rules
 # --------------------------------------------------------------------------- #
 def _jax_specs(model):
@@ -176,7 +226,7 @@ def _jax_specs(model):
     return out, n_leaves
 
 
-@pytest.mark.parametrize("model", [2, 4])
+@pytest.mark.parametrize("model", [2, 4, 8])
 def test_param_spec_matches_jax_param_shardings(model):
     from youtube_vln_tpu_torch import lily_base_config
     from youtube_vln_tpu_torch.models.weights import full_shapes
@@ -201,12 +251,13 @@ def test_param_spec_matches_jax_param_shardings(model):
         f"{c}.biattention.query1.weight"], {"data": 8, "model": 1}) is None
 
 
-@pytest.mark.parametrize("model", [2, 4])
+@pytest.mark.parametrize("model", [2, 4, 8, 16])
 def test_sharded_lily_holds_the_shards_of_shard_state_dict(model):
     """The modules of a ``Lily`` built with each ``ModelShard`` have the
     shapes that ``shard_state_dict`` cuts, and its ``init_weights`` draws
     the shards of the one process's weights (the test config at 2, the
-    flagship's shapes on the meta device at 2 and 4)."""
+    flagship's shapes on the meta device at 2 to 16: at 8 and 16 the
+    text heads, at 16 every site's, split)."""
     import test_torch_engine as T
     from youtube_vln_tpu_torch import lily_base_config, tiny_config
     from youtube_vln_tpu_torch.models import Lily
@@ -219,7 +270,7 @@ def test_sharded_lily_holds_the_shards_of_shard_state_dict(model):
         got = Lily(cfg, device="meta", shard=ModelShard(m, model)).state_dict()
         want = shard_state_dict(full, {"model": model}, m)
         assert {k: v.shape for k, v in got.items()} == {k: v.shape for k, v in want.items()}
-    if model == 4:
+    if model != 2:
         return
     small = tiny_config(**T.MODEL)
     one = Lily(small, device="cpu").init_weights(3).state_dict()
@@ -316,9 +367,41 @@ def run_steps(spec):
     return result
 
 
+GATHER_SHAPE = (2, 3, 8)            # a rank's shard of [2, 3, 16]
+GATHER_KEEP = [slice(0, 12), slice(4, 16)]   # what each rank reads of it
+
+
+def _gather_grads(gather):
+    """``gather`` over the default group of 2 when rank r reads
+    ``GATHER_KEEP[r]`` of the gathered tensor with weights ``w[r]``: (the
+    gathered tensor, both ranks' shards, this rank's input gradient, the sum
+    over both ranks of what they read of its shard)."""
+    from youtube_vln_tpu_torch.parallel import distributed
+    from youtube_vln_tpu_torch.parallel.tensor import ModelShard
+
+    rank, f = distributed.rank(), GATHER_SHAPE[-1]
+    gen = torch.Generator().manual_seed(17)
+    shards = torch.randn(2, *GATHER_SHAPE, generator=gen)
+    w = torch.randn(2, *GATHER_SHAPE[:-1], 2 * f, generator=gen)
+    x = shards[rank].clone().requires_grad_()
+    full = gather(x, ModelShard(rank, 2))
+    keep = GATHER_KEEP[rank]
+    (full[..., keep] * w[rank][..., keep]).sum().backward()
+    read = torch.zeros_like(w)
+    for r, k in enumerate(GATHER_KEEP):
+        read[r][..., k] = w[r][..., k]
+    return (full.detach(), torch.cat(list(shards), -1), x.grad,
+            read.sum(0)[..., rank * f:(rank + 1) * f])
+
+
 def _runs_task(spec):
-    return {name: run_steps(dict(run, out=spec["out"]))
-            for name, run in spec["runs"].items()}
+    from youtube_vln_tpu_torch.parallel import tensor
+    out = {name: run_steps(dict(run, out=spec["out"]))
+           for name, run in spec["runs"].items()}
+    if spec.get("gather"):
+        out["gather"] = {"heads": _gather_grads(tensor.gather_heads_from_model),
+                         "features": _gather_grads(tensor.gather_from_model)}
+    return out
 
 
 TASKS = {"runs": _runs_task}
@@ -326,57 +409,112 @@ TASKS = {"runs": _runs_task}
 
 @pytest.fixture(scope="module")
 def env(tmp_path_factory):
+    """``test_torch_engine``'s environment, and under ``models`` each model
+    config of ``MESHES`` with its file at dropout 0 and 0.1 and its
+    JAX-written weights."""
+    import json
+
+    import jax
     import test_torch_engine as T
-    return T.build_env(tmp_path_factory.mktemp("tp"))
+    from youtube_vln_tpu.config import LilyConfig as JaxLilyConfig
+    from youtube_vln_tpu.models import init_lily_params
+    from youtube_vln_tpu.training import checkpoint as jckpt
+
+    env = T.build_env(tmp_path_factory.mktemp("tp"))
+    env["models"] = {"d64": {k: env[k] for k in ("config_file",
+                                                 "dropout_config_file", "weights")}}
+    root = env["root"]
+    three = {}
+    for key, rate in (("config_file", 0.0), ("dropout_config_file", 0.1)):
+        cfg = json.loads(Path(env[key]).read_text())
+        cfg.update(THREE_HEADS, **{k: rate for k in T.DROPOUT})
+        three[key] = root / f"3heads_{rate}.json"
+        three[key].write_text(json.dumps(cfg))
+    cfg = JaxLilyConfig.from_json_file(three["config_file"])
+    cfg.ranking = cfg.traj_judge = cfg.masked_vision = cfg.masked_language = True
+    params = jax.tree_util.tree_map(
+        np.asarray, init_lily_params(jax.random.PRNGKey(8), cfg))
+    three["weights"] = jckpt.save_checkpoint(str(root), "init_3heads", params, cfg)
+    env["models"]["3heads"] = {k: str(v) for k, v in three.items()}
+    return env
 
 
-def tp_argv(env, pkg, mesh=(), dropout=False, extra=()):
+def tp_argv(env, pkg, mesh=(), dropout=False, extra=(), model="d64"):
     import test_torch_engine as T
+    files = env["models"][model]
     # no validation splits: the steps read the training Loader alone
     out = T.flags(env, pkg, "finetune", ["--batch_size", "4", "--ConstantLR",
                                          "--no_test", *extra])
-    if dropout:
-        out += ["--config_file", env["dropout_config_file"]]
+    out += ["--config_file", files["dropout_config_file" if dropout else
+                                   "config_file"],
+            "--from_pretrained", files["weights"]]
     if mesh:
         out += ["--mesh_shape", *map(str, mesh)]
     return out
 
 
 @pytest.fixture(scope="module")
-def tp_runs(env):
-    """The spawned runs of a mesh: one step at dropout 0 and two at dropout
-    0.1; the 2-rank processes also run the data-parallel ``2 1`` at dropout
-    0.1.  Cached by world size, one spawn each."""
+def tp_spawn(env):
+    """The spawned runs of a world size, one spawn each: for every mesh of
+    ``MESHES`` of that size one step at dropout 0 and two at dropout 0.1;
+    the 2-rank processes also run the data-parallel ``2 1`` at dropout 0.1
+    and the gather of ``_gather_grads``.  Returns each rank's results by
+    run name (``<kind>_<model>_<D>x<M>``)."""
     cache = {}
 
-    def run(mesh):
-        world = mesh[0] * mesh[1]
+    def spawn(world):
         if world not in cache:
             runs = {}
-            for m in [mesh] + ([(2, 1)] if world == 2 else []):
-                tag = f"{m[0]}x{m[1]}"
+            meshes = [c for c in MESHES if c[1][0] * c[1][1] == world]
+            for model, m in meshes + ([("d64", (2, 1))] if world == 2 else []):
+                tag = f"{model}_{m[0]}x{m[1]}"
                 if m[1] > 1:
-                    runs[f"f32_{tag}"] = {"argv": tp_argv(env, "port", m),
+                    runs[f"f32_{tag}"] = {"argv": tp_argv(env, "port", m, model=model),
                                           "steps": [0]}
                 runs[f"dropout_{tag}"] = {
-                    "argv": tp_argv(env, "port", m, dropout=True), "steps": [0, 1]}
-            cache[world] = run_ranks(Path(__file__), "runs", {"runs": runs},
+                    "argv": tp_argv(env, "port", m, dropout=True, model=model),
+                    "steps": [0, 1]}
+            cache[world] = run_ranks(Path(__file__), "runs",
+                                     {"runs": runs, "gather": world == 2},
                                      env["root"] / f"tp_world{world}", world=world)
-        tag = f"{mesh[0]}x{mesh[1]}"
-        return [{k.rsplit("_", 1)[0]: v for k, v in r.items() if k.endswith(tag)}
-                for r in cache[world]]
+        return cache[world]
+
+    return spawn
+
+
+@pytest.fixture(scope="module")
+def tp_runs(tp_spawn):
+    """Each rank's runs of one (model config, mesh): {"f32": ..., "dropout":
+    ...}."""
+    def run(model, mesh):
+        tag = f"_{model}_{mesh[0]}x{mesh[1]}"
+        return [{k[:-len(tag)]: v for k, v in r.items() if k.endswith(tag)}
+                for r in tp_spawn(mesh[0] * mesh[1])]
 
     return run
 
 
-def _jax_one_step(env):
+def test_gather_heads_sums_the_gradient_over_the_model_group(tp_spawn):
+    """Two ranks read different, overlapping slices of the gathered tensor:
+    ``gather_heads_from_model`` hands each rank the sum of both ranks'
+    gradients of its shard; ``gather_from_model``, whose downstream is
+    replicated, only its own."""
+    for r in tp_spawn(2):
+        full, want_full, got, want = r["gather"]["heads"]
+        assert torch.equal(full, want_full)
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
+        *_, got, want = r["gather"]["features"]
+        assert not torch.allclose(got, want, rtol=0, atol=1e-2)
+
+
+def _jax_one_step(env, model):
     """(metrics, parameters as the port's state dict) of the JAX Engine's
     first step on epoch 0's first batch."""
     import jax
     import test_torch_engine as T
     from youtube_vln_tpu_torch.models.weights import state_dict_from_jax_params
 
-    engine = T.make_engine("jax", tp_argv(env, "jax"))
+    engine = T.make_engine("jax", tp_argv(env, "jax", model=model))
     engine.train_loader.set_epoch(0)
     batch = next(iter(engine._device_batches(engine.train_loader, 1)))
     engine.rng, sub = jax.random.split(engine.rng)
@@ -389,21 +527,29 @@ def _jax_one_step(env):
 
 @pytest.fixture(scope="module")
 def jax_step(env):
-    return _jax_one_step(env)
+    """``_jax_one_step`` of each model config, computed once."""
+    cache = {}
+
+    def step(model):
+        if model not in cache:
+            cache[model] = _jax_one_step(env, model)
+        return cache[model]
+
+    return step
 
 
-@pytest.mark.parametrize("mesh", MESHES, ids=["1x2", "2x2"])
-def test_tp_step_matches_the_jax_step(env, tp_runs, jax_step, mesh):
+@pytest.mark.parametrize("config,mesh", MESHES, ids=MESH_IDS)
+def test_tp_step_matches_the_jax_step(env, tp_runs, jax_step, config, mesh):
     from youtube_vln_tpu_torch.models.weights import state_dict_from_jax_params
     from youtube_vln_tpu_torch.utils import cli, entry
 
-    ranks = tp_runs(mesh)
+    ranks = tp_runs(config, mesh)
     data, model = mesh
     assert [r["f32"]["mesh"] for r in ranks] == [(d, m) for d in range(data)
                                                  for m in range(model)]
     assert [r["f32"]["step_batch"] for r in ranks] == [4 // data] * (data * model)
-    want_metrics, params = jax_step
-    _, args = cli.parse_run_config(tp_argv(env, "port"))
+    want_metrics, params = jax_step(config)
+    _, args = cli.parse_run_config(tp_argv(env, "port", model=config))
     want = state_dict_from_jax_params(params, entry.build_model_config(args))
     for r in ranks:
         got = r["f32"]
@@ -422,30 +568,39 @@ def test_tp_step_matches_the_jax_step(env, tp_runs, jax_step, mesh):
             .shape == want["bert.encoder.layer.0.attention.self.query.weight"].shape)
 
 
-def _one_process_steps(env, n_steps=2):
+def _one_process_steps(env, model, n_steps=2):
     """The port's own one process: the dropout runs' steps."""
-    from youtube_vln_tpu_torch.parallel import distributed
     assert not torch.distributed.is_initialized()
-    return run_steps({"argv": tp_argv(env, "port", dropout=True),
+    return run_steps({"argv": tp_argv(env, "port", dropout=True, model=model),
                       "steps": list(range(n_steps))})
 
 
 @pytest.fixture(scope="module")
 def one_process(env):
-    return _one_process_steps(env)
+    """``_one_process_steps`` of each model config, computed once."""
+    cache = {}
+
+    def run(model):
+        if model not in cache:
+            cache[model] = _one_process_steps(env, model)
+        return cache[model]
+
+    return run
 
 
-@pytest.mark.parametrize("mesh", MESHES, ids=["1x2", "2x2"])
-def test_tp_dropout_steps_match_one_process(env, tp_runs, one_process, mesh):
+@pytest.mark.parametrize("config,mesh", MESHES, ids=MESH_IDS)
+def test_tp_dropout_steps_match_one_process(env, tp_runs, one_process, config,
+                                            mesh):
     """Dropout 0.1 at every site: the masks of the run without a model axis
     (the kernel sites' head mapping, the XLA path's global draw at the text
     self-attention, the replicated sites' generator shared by the model
     ranks), so the losses agree within 1e-5 over 2 steps; the replicated
     parameters are bitwise equal across the model ranks and the sharded
     ones differ."""
-    ranks = tp_runs(mesh)
+    ranks = tp_runs(config, mesh)
     data, model = mesh
-    reference = one_process if data == 1 else tp_runs((data, 1))[0]["dropout"]
+    reference = (one_process(config) if data == 1 else
+                 tp_runs(config, (data, 1))[0]["dropout"])
     want = reference["steps"]
     for r in ranks:
         got = r["dropout"]["steps"]

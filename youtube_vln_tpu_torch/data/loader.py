@@ -423,6 +423,10 @@ class Loader:
                     if buf and not self.drop_last:
                         yield collate(buf, self.nc, self.with_instr_id, self.nc_uniq)
         finally:
+            # a consumer that stops mid-epoch leaves the items of the batch
+            # it was handed in ``buf``, each a view of its slab: dropped
+            # first, since a slab that is still viewed cannot close
+            buf = None
             for slab in slabs:
                 try:
                     slab.unlink()   # free the segment even if views linger

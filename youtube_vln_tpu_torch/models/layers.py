@@ -35,16 +35,19 @@ means eval), keeps the JAX package's two semantics:
 
 Tensor parallelism (``parallel/tensor.py``, a ``ModelShard`` handed to each
 layer): the attention projections and the FFN input are column-parallel
-(local heads and local features, their input through ``copy_to_model``),
-the attention output and the FFN output row-parallel (``reduce_from_model``
-before the bias, which is replicated), as the JAX package's
-``_param_spec`` shards them.  A sharded weight carries ``tp_dim``, the dim
-of the full tensor it is a shard of.  Every model rank of a data
-coordinate draws the same bits at the replicated dropout sites
-(``DropoutRng`` keys on the data rank), and the one head-sharded site of
-the XLA path, the text self-attention's probabilities, draws the bits of
-every head and keeps its own, so the mask is the one process's and the
-generator advances alike on every model rank.
+(local features, their input through ``copy_to_model``), the attention
+output and the FFN output row-parallel (``reduce_from_model`` before the
+bias, which is replicated), as the JAX package's ``_param_spec`` shards
+them, whether or not the heads split with the features: a rank attends on
+the whole heads that cover its features and keeps its own features of the
+context (``HeadCover``).  A sharded weight carries ``tp_dim``, the dim of
+the full tensor it is a shard of.  Every model rank of a data coordinate
+draws the same bits at the replicated dropout sites (``DropoutRng`` keys
+on the data rank), and the one head-sharded site of the XLA path, the text
+self-attention's probabilities, draws the bits of every head and keeps
+its own, so the mask is the one process's, two ranks that cover one head
+draw the same mask for it, and the generator advances alike on every
+model rank.
 """
 from __future__ import annotations
 
@@ -58,7 +61,8 @@ from ..ops import epilogue
 from ..ops.attention import (attention_reference, attention_scores,
                              fused_attention, use_kernel_for)
 from ..ops.philox import MASK64, site_seed
-from ..parallel.tensor import ModelShard, copy_to_model, reduce_from_model
+from ..parallel.tensor import (HeadCover, ModelShard, copy_to_model,
+                               reduce_from_model)
 
 LN_EPS = 1e-12
 
@@ -232,15 +236,15 @@ class SelfAttentionHeads(nn.Module):
     reference's ``BertSelfAttention``).  Where ``use_kernel_for`` selects
     a kernel site, kernel B1 runs (``cfg.use_attention_kernels``) or its
     plain version, as ``select_attention_fn`` does.  Under a model axis
-    the projections are column-parallel: this rank's heads [head0, head0 +
-    local) of ``num_heads``, whose context it returns."""
+    the projections are column-parallel: this rank attends on the heads
+    [head0, head0 + n) of ``num_heads`` that cover its features
+    (``HeadCover``) and returns its features of the context."""
 
     def __init__(self, hidden: int, num_heads: int, cfg, dropout_rate: float,
                  device=None, shard: ModelShard = ModelShard()):
         super().__init__()
         self.num_heads = num_heads
-        self.local_heads, self.head0 = shard.heads(num_heads, hidden)
-        self.shard = shard
+        self.cover = HeadCover(shard, num_heads, hidden)
         self.cfg = cfg
         self.dropout_rate = dropout_rate
         self.query = column_linear(hidden, hidden, shard, device=device)
@@ -248,11 +252,10 @@ class SelfAttentionHeads(nn.Module):
         self.value = column_linear(hidden, hidden, shard, device=device)
 
     def forward(self, x, key_bias, rng=None):
-        if self.local_heads < self.num_heads:
-            x = copy_to_model(x, self.shard)
-        q = split_heads(self.query(x), self.local_heads)
-        k = split_heads(self.key(x), self.local_heads)
-        v = split_heads(self.value(x), self.local_heads)
+        cover = self.cover
+        x = copy_to_model(x, cover.shard)
+        q, k, v = (split_heads(cover.take(proj(x)), cover.heads)
+                   for proj in (self.query, self.key, self.value))
         rate = 0.0 if rng is None else self.dropout_rate
         if use_kernel_for(q.shape[2], k.shape[2], q.shape[3]):
             seed, stream0 = ((0, 0) if rng is None else
@@ -260,12 +263,12 @@ class SelfAttentionHeads(nn.Module):
             attend = (fused_attention if self.cfg.use_attention_kernels
                       else attention_reference)
             ctx = attend(q, k, v, key_bias, dropout_rate=rate, seed=seed,
-                         stream0=stream0, head0=self.head0,
+                         stream0=stream0, head0=cover.head0,
                          heads_total=self.num_heads)
         else:
             ctx = attention_core(q, k, v, key_bias, rate, rng,
-                                 (self.head0, self.num_heads))
-        return merge_heads(ctx)
+                                 (cover.head0, self.num_heads))
+        return cover.keep(merge_heads(ctx))
 
 
 class AddNorm(nn.Module):

@@ -22,12 +22,14 @@ Under tensor parallelism (``Lily(..., shard=ModelShard(m, M, group))``)
 each process holds its shard of the weights by the JAX package's
 ``_param_spec`` rules (``parallel/mesh.py:param_spec``): the attention,
 FFN and co-attention projections column-parallel and the attention and
-FFN outputs row-parallel (``models/layers.py``); the co-attention contexts
-gathered before the replicated ``biOutput.dense1`` / ``dense2``; the word
-embedding, and the MLM decoder tied to it, sharded on the vocabulary
-(masked lookups summed over the model group, logits gathered before the
-replicated bias).  Everything else is replicated, and so is any tensor
-whose dim the model axis does not divide (the vocabulary of 30,522 at 4).
+FFN outputs row-parallel (``models/layers.py``), each attention on the
+whole heads that cover the rank's features (``parallel/tensor.py:
+HeadCover``); the co-attention contexts gathered before the replicated
+``biOutput.dense1`` / ``dense2``; the word embedding, and the MLM decoder
+tied to it, sharded on the vocabulary (masked lookups summed over the
+model group, logits gathered before the replicated bias).  Everything
+else is replicated, and so is any tensor whose dim the model axis does
+not divide (the vocabulary of 30,522 at 4).
 """
 from __future__ import annotations
 
@@ -41,8 +43,9 @@ from torch.utils.checkpoint import checkpoint
 from ..config import LilyConfig
 from ..ops.attention import (bi_attention_reference, fused_bi_attention,
                              use_kernel_for)
-from ..parallel.tensor import (ModelShard, copy_to_model, gather_from_model,
-                               reduce_from_model, shard_tensor)
+from ..parallel.tensor import (HeadCover, ModelShard, copy_to_model,
+                               gather_from_model, reduce_from_model,
+                               shard_tensor)
 from .layers import (ACT2FN, AddNorm, DropoutRng, Intermediate, LayerNorm,
                      Linear, TransformerLayer, attention_core, column_linear,
                      dropout, dropout_add_ln, ffn, merge_heads, split_heads)
@@ -149,16 +152,16 @@ class VisionEmbeddings(nn.Module):
 class BiAttention(nn.Module):
     """Bi-directional cross attention (reference vilbert.py:552-618).
     Stream 1 is vision, stream 2 text.  Under a model axis the projections
-    are column-parallel (this rank's heads) and the contexts are gathered
-    whole for the replicated ``BiOutput``."""
+    are column-parallel: this rank attends on the heads that cover its
+    features (``HeadCover``), keeps its features of the contexts and
+    gathers them whole for the replicated ``BiOutput``."""
 
     def __init__(self, cfg: LilyConfig, device=None,
                  shard: ModelShard = ModelShard()):
         super().__init__()
         self.cfg = cfg
         bi = cfg.bi_hidden_size
-        self.heads, self.head0 = shard.heads(cfg.bi_num_attention_heads, bi)
-        self.shard = shard if shard.divides(bi) else ModelShard()
+        self.cover = HeadCover(shard, cfg.bi_num_attention_heads, bi)
         for name, d_in in (("query1", cfg.v_hidden_size),
                            ("key1", cfg.v_hidden_size),
                            ("value1", cfg.v_hidden_size),
@@ -172,15 +175,13 @@ class BiAttention(nn.Module):
         [B, S_v, bi]).  Dropout rates (train mode): text -> vision
         ``v_attention_probs_dropout_prob``, vision -> text
         ``attention_probs_dropout_prob`` (JAX vilbert.py:180-181, 186-192)."""
-        cfg = self.cfg
-        heads, total = self.heads, cfg.bi_num_attention_heads
-        v_x, t_x = copy_to_model(v_x, self.shard), copy_to_model(t_x, self.shard)
-        q1 = split_heads(self.query1(v_x), heads)
-        k1 = split_heads(self.key1(v_x), heads)
-        v1 = split_heads(self.value1(v_x), heads)
-        q2 = split_heads(self.query2(t_x), heads)
-        k2 = split_heads(self.key2(t_x), heads)
-        v2 = split_heads(self.value2(t_x), heads)
+        cfg, cover = self.cfg, self.cover
+        total = cfg.bi_num_attention_heads
+        v_x, t_x = copy_to_model(v_x, cover.shard), copy_to_model(t_x, cover.shard)
+        q1, k1, v1 = (split_heads(cover.take(proj(v_x)), cover.heads)
+                      for proj in (self.query1, self.key1, self.value1))
+        q2, k2, v2 = (split_heads(cover.take(proj(t_x)), cover.heads)
+                      for proj in (self.query2, self.key2, self.value2))
         rate1, rate2 = ((0.0, 0.0) if rng is None else
                         (cfg.v_attention_probs_dropout_prob,
                          cfg.attention_probs_dropout_prob))
@@ -192,14 +193,14 @@ class BiAttention(nn.Module):
                       else bi_attention_reference)
             ctx1, ctx2 = attend(q1, k1, v1, q2, k2, v2, v_bias, t_bias,
                                 rate1=rate1, rate2=rate2, seed=seed,
-                                stream0=stream0, head0=self.head0,
+                                stream0=stream0, head0=cover.head0,
                                 heads_total=total)
         else:
-            ours = (self.head0, total)
+            ours = (cover.head0, total)
             ctx1 = attention_core(q2, k1, v1, v_bias, rate1, rng, ours)  # text -> vision
             ctx2 = attention_core(q1, k2, v2, t_bias, rate2, rng, ours)  # vision -> text
-        return (gather_from_model(merge_heads(ctx1), self.shard),
-                gather_from_model(merge_heads(ctx2), self.shard))
+        return (gather_from_model(cover.keep(merge_heads(ctx1)), cover.shard),
+                gather_from_model(cover.keep(merge_heads(ctx2)), cover.shard))
 
 
 class BiOutput(nn.Module):
@@ -291,8 +292,9 @@ class Encoder(nn.Module):
         state of its generator, so both passes draw the same dropout masks
         (``preserve_rng_state`` saves only the default generators, which no
         site draws from).  Under a model axis the recompute runs the
-        block's collectives again; every rank replays its blocks in the
-        same order, so they meet."""
+        block's collectives again, the all-gathers of split heads among
+        them; every rank replays its blocks in the same order, so they
+        meet."""
         if not (self.cfg.remat and rng is not None and torch.is_grad_enabled()):
             return layer(*xs, rng)
         sites, state = rng.sites, rng.generator.get_state()

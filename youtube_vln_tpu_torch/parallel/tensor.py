@@ -10,6 +10,10 @@ inserts around the JAX package's Megatron rules (``parallel/mesh.py``
   * ``gather_from_model``: feature-sharded activations made whole on the
     last dim (the co-attention contexts before their replicated outputs,
     the MLM logits); the gradient sliced backward.
+  * ``gather_heads_from_model``: the same gather, for q/k/v of an attention
+    layer whose heads the model axis splits (``HeadCover``); each rank reads
+    only the heads that cover its features, so the gradient is summed over
+    the model group before this rank's slice is taken.
   * ``shard_tensor`` / ``unshard_tensor``: a full tensor's shard of this
     rank, and a shard gathered back to the full tensor (no gradient).
   * ``average_over_model``: the mean of replicated gradients over the
@@ -52,16 +56,18 @@ class ModelShard:
         return n // self.world if self.divides(n) else n
 
     def heads(self, num_heads: int, hidden: int):
-        """(local heads, first head) of an attention layer of ``num_heads``
-        over ``hidden`` features: the heads split with the features, or all
-        of them where the features stay whole."""
+        """(n, head0, off) of an attention layer of ``num_heads`` over
+        ``hidden`` features: heads [head0, head0 + n) are the whole heads
+        that cover this rank's features [r * f, (r + 1) * f), f = hidden /
+        M, which start ``off`` features into them.  Where f is a whole
+        number of heads these are the rank's own heads and off is 0; where
+        the features stay whole, every head."""
         if not self.divides(hidden):
-            return num_heads, 0
-        if num_heads % self.world:
-            raise ValueError(f"{num_heads} heads do not split over a model "
-                             f"axis of {self.world}")
-        local = num_heads // self.world
-        return local, self.rank * local
+            return num_heads, 0, 0
+        f, d = hidden // self.world, hidden // num_heads
+        lo = self.rank * f
+        head0 = lo // d
+        return -(-(lo + f) // d) - head0, head0, lo - head0 * d
 
 
 def _all_gather(x: torch.Tensor, dim: int, shard: ModelShard) -> torch.Tensor:
@@ -110,6 +116,17 @@ class _GatherFromModel(torch.autograd.Function):
         return grad.chunk(shard.world, dim=-1)[shard.rank].contiguous(), None
 
 
+class _GatherHeadsFromModel(_GatherFromModel):
+    @staticmethod
+    def backward(ctx, grad):
+        # each rank's gradient holds what its own heads read of every
+        # shard, which two ranks that share a head both read
+        shard = ctx.shard
+        grad = grad.contiguous().clone()
+        dist.all_reduce(grad, group=shard.group)
+        return grad.chunk(shard.world, dim=-1)[shard.rank].contiguous(), None
+
+
 def copy_to_model(x: torch.Tensor, shard: ModelShard) -> torch.Tensor:
     return x if shard.world == 1 else _CopyToModel.apply(x, shard)
 
@@ -120,6 +137,42 @@ def reduce_from_model(x: torch.Tensor, shard: ModelShard) -> torch.Tensor:
 
 def gather_from_model(x: torch.Tensor, shard: ModelShard) -> torch.Tensor:
     return x if shard.world == 1 else _GatherFromModel.apply(x, shard)
+
+
+def gather_heads_from_model(x: torch.Tensor, shard: ModelShard
+                            ) -> torch.Tensor:
+    return x if shard.world == 1 else _GatherHeadsFromModel.apply(x, shard)
+
+
+class HeadCover:
+    """An attention layer of ``num_heads`` over ``hidden`` features on this
+    rank of the model axis, whose q/k/v projections are column-parallel.
+    Where the rank's f = hidden / M features are a whole number of heads it
+    attends on its own heads.  Where they start or end inside a head
+    (``split``: 12 heads of 64 over 8 ranks, 96 features each) the ranks
+    gather q, k and v (``take``), attend on the heads [head0, head0 + heads)
+    that cover their features, and each keeps its own features of the
+    context (``keep``): a head that two ranks share is computed on both."""
+
+    def __init__(self, shard: ModelShard, num_heads: int, hidden: int):
+        self.shard = shard if shard.divides(hidden) else ModelShard()
+        self.heads, self.head0, self.off = shard.heads(num_heads, hidden)
+        self.width = self.shard.local(hidden)
+        d = hidden // num_heads
+        self.split = self.width % d != 0
+        self.span = slice(self.head0 * d, (self.head0 + self.heads) * d)
+
+    def take(self, x: torch.Tensor) -> torch.Tensor:
+        """[B, S, f] of this rank's features -> [B, S, heads * d] of its
+        covering heads."""
+        if not self.split:
+            return x
+        return gather_heads_from_model(x, self.shard)[..., self.span]
+
+    def keep(self, ctx: torch.Tensor) -> torch.Tensor:
+        """[B, S, heads * d] of the covering heads -> [B, S, f] of this
+        rank's features."""
+        return ctx[..., self.off:self.off + self.width] if self.split else ctx
 
 
 def shard_tensor(t: torch.Tensor, dim: Optional[int], rank: int, world: int

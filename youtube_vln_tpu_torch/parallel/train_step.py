@@ -248,8 +248,7 @@ def _refuse_batch_expansion(cfg) -> None:
     encoder (``models/vilbert.py:Encoder.forward``).  The JAX step expands
     the global batch (``parallel/train_step.py:289-308`` there); a rank here
     holds only its rows of it, so under a data axis above 1 either mode
-    would pair other candidates.  Refused, as ``ModelShard.heads`` refuses
-    heads it cannot split."""
+    would pair other candidates: refused."""
     world = distributed.data_world()
     for mode in ("in_batch_pairs", "fast_mode"):
         if getattr(cfg, mode, False) and world > 1:
