@@ -100,14 +100,17 @@ Phases, each fatal on failure:
      is DDP-wrapped on the card, with ``--orbax_checkpoints`` (a ``.dcp``
      save) and a ``--resume`` from it, 6 launches of each of B1-B4 per
      micro-step, ms per step against phase 13's unwrapped run; (c) two
-     child ranks over gloo on the one card: 30RS ``--remat`` in f32 with
-     dropout 0 against the same run in this process (per-step losses within
-     1e-4 relative), in bf16 (losses equal across the ranks), and the MRT
-     step with the epilogue kernels (24 launches each of B5/B6 per
-     micro-step per rank) saved collectively as ``.dcp`` and loaded here in
-     one process, equal to rank 0's weights; a child that fails or hangs
-     (420 s) fails the run; prints a ``ddp`` JSON line (gloo's times are
-     not a speed number);
+     child ranks over gloo on the one card, at full width and a depth cut
+     to ``GLOO_DEPTH`` (2 text layers, 1 vision layer, 1 connection layer):
+     30RS ``--remat`` in f32 with dropout 0 and ``fast_mode`` (a no-op on
+     the flattened step batch) against the same run without it in this
+     process (per-step losses within 1e-4 relative), in bf16 (losses equal
+     across the ranks), and the MRT step with the epilogue kernels (4
+     launches each of B5/B6 per micro-step per rank, one per vision-stream
+     site) saved collectively as ``.dcp`` and loaded here in one process,
+     equal to rank 0's weights; a child that fails or hangs (420 s) fails
+     the run; prints a ``ddp`` JSON line (gloo's times are not a speed
+     number);
  15. tensor parallelism over heads, after phase 14: (a) B1-B4 at the
      train shapes (bf16 and f32, dropout 0 and 0.1) on every shard of a
      1 x 2 and a 2 x 2 mesh with the head mapping of the Philox stream:
@@ -115,19 +118,20 @@ Phases, each fatal on failure:
      launch without one; B5/B6 with the data coordinate's row0 once per
      model rank, bitwise the full launch's rows; (b) two gloo child ranks
      on the one card under ``--mesh_shape 1 2`` (global batch 8,
-     ``--remat``, an R2R fixture of 18 instructions): the 30RS train entry
-     in f32 with dropout 0 against one process (per-step losses within
-     1e-4 relative), its gathered ``0.bin`` equal in keys and shapes to the
-     one process's; in bf16 with dropout 0.1, the replicated parameters
-     bitwise equal across the ranks, the ``.dcp`` loaded in one process
-     equal to the ranks' gathered weights and moments; (c) the MRT pretrain
-     entry under ``--mesh_shape 1 2`` with the epilogue kernels, 2 steps:
-     6 launches of B1-B4 and 24 of B5/B6 per micro-step per rank, every B5
-     output bitwise equal on the two ranks; (d) eight gloo child ranks on
+     ``--remat``, an R2R fixture of 18 instructions) at full width and
+     ``GLOO_DEPTH``: the 30RS train entry in f32 with dropout 0 against one
+     process at that depth (per-step losses within 1e-4 relative), its
+     gathered ``0.bin`` equal in keys and shapes to the one process's; in
+     bf16 with dropout 0.1, the replicated parameters bitwise equal across
+     the ranks, the ``.dcp`` loaded in one process equal to the ranks'
+     gathered weights and moments; (c) the MRT pretrain entry at
+     ``GLOO_DEPTH`` under ``--mesh_shape 1 2`` with the epilogue kernels, 2
+     steps: 1 launch of B1-B4 and 4 of B5/B6 per micro-step per rank, every
+     B5 output bitwise equal on the two ranks; (d) eight gloo child ranks on
      the card under ``--mesh_shape 1 8`` at full width and depth, where
      the 12 text heads split (each rank attends on the 2 heads that cover
-     its 96 features): the 30RS entry of (b) in f32 against (b)'s one
-     process (1e-4 relative), its gathered ``0.bin`` in keys and shapes,
+     its 96 features): the 30RS entry of (b) in f32 against one process at
+     full depth (1e-4 relative), its gathered ``0.bin`` in keys and shapes,
      in bf16 at dropout 0.1 the replicated parameters bitwise equal across
      the eight ranks, 6 launches of B1-B4 per micro-step per rank; (e)
      B1-B4 on the heads that cover each coordinate of a model axis of 16
@@ -2257,14 +2261,13 @@ def entry_record(rec, launches):
 
 def child_entry(run, spec):
     """One run of the train entry on this rank: fatal unless each micro-step
-    launched its share of B1-B4 (``per_micro``) and the model was wrapped in
-    DDP once."""
+    launched its share of B1-B4 (``per_micro`` per layer of the run's
+    config) and the model was wrapped in DDP once."""
     import torch
-    from youtube_vln_tpu_torch import lily_base_config
     from youtube_vln_tpu_torch.entries import train as train_entry
     _, launches, rec = run_entry(train_entry.main, run["argv"])
     check_entry_run(f"{run['name']}, rank {os.environ['RANK']}", rec, launches,
-                    lily_base_config(), 0, tuple(run["per_micro"]))
+                    config_of(run["argv"]), 0, tuple(run["per_micro"]))
     if len(rec["ddp"]) != 1:
         fail(f"{run['name']}: the model was wrapped in DDP {len(rec['ddp'])} times")
     out = entry_record(rec, launches)
@@ -2276,10 +2279,11 @@ def child_entry(run, spec):
 
 
 def child_mrt(run, spec):
-    """The MRT step with ``use_epilogue_kernels`` on, DDP over the group: two
-    steps of the YTb fixture's Loader shard of this rank (4 of the global 8
-    instructions), the launches checked per micro-step, then a collective
-    ``.dcp`` save, and rank 0's weights as a ``.bin`` to compare it with."""
+    """The MRT step with ``use_epilogue_kernels`` on at the run's ``depth``,
+    DDP over the group: two steps of the YTb fixture's Loader shard of this
+    rank (4 of the global 8 instructions), the launches checked per
+    micro-step, then a collective ``.dcp`` save, and rank 0's weights as a
+    ``.bin`` to compare it with."""
     import numpy as np
     import torch
     from youtube_vln_tpu_torch import lily_base_config
@@ -2305,7 +2309,7 @@ def child_mrt(run, spec):
     reader.close()
     cfg = lily_base_config(ranking=True, traj_judge=True, masked_vision=True,
                            masked_language=True, compute_dtype="bfloat16",
-                           use_epilogue_kernels=True)
+                           use_epilogue_kernels=True, **run["depth"])
     model = Lily(cfg, device="cuda").init_weights(seed)
     optimizer, _ = create_train_state(model, args, steps_per_epoch=1000)
     step = build_train_step(model, cfg, args, optimizer, device="cuda")
@@ -2362,29 +2366,46 @@ def sum_launches(*runs):
     return total
 
 
-def dropout_free_config(root) -> Path:
-    """The flagship config file with every dropout rate at 0 (the fused
-    pool's, ``fusion_dropout_prob``, is not in the file: its default is 0.1)."""
+DROPOUT_FREE = {k: 0.0 for k in ("hidden_dropout_prob", "attention_probs_dropout_prob",
+                                  "v_hidden_dropout_prob", "v_attention_probs_dropout_prob",
+                                  "fusion_dropout_prob")}
+# the depth of the gloo runs of phases 14(c) and 15(b, c): one text layer
+# before the connection, one vision layer and one connection layer at full
+# width (14(b) and 15(d) run the full depth)
+GLOO_DEPTH = dict(num_hidden_layers=2, t_biattention_id=[1], v_num_hidden_layers=1,
+                  v_biattention_id=[0])
+
+
+def flagship_config_file(root, name, **overrides) -> Path:
+    """The flagship config file with ``overrides`` (``DROPOUT_FREE`` sets the
+    fused pool's ``fusion_dropout_prob`` too, whose default is 0.1), written
+    to ``root/<name>.json``."""
     cfg = json.loads((REPO / "configs" / "bert_base_6_layer_6_connect.json").read_text())
-    cfg.update({k: 0.0 for k in ("hidden_dropout_prob", "attention_probs_dropout_prob",
-                                 "v_hidden_dropout_prob", "v_attention_probs_dropout_prob",
-                                 "fusion_dropout_prob")})
-    path = Path(root) / "bert_base_6_layer_6_connect_dropout0.json"
+    cfg.update(overrides)
+    path = Path(root) / f"{name}.json"
     path.write_text(json.dumps(cfg))
     return path
+
+
+def config_of(argv):
+    """The model configuration that an entry run of ``argv`` reads (its last
+    ``--config_file``)."""
+    from youtube_vln_tpu_torch.config import LilyConfig
+    i = len(argv) - 1 - argv[::-1].index("--config_file")
+    return LilyConfig.from_json_file(argv[i + 1])
 
 
 def ddp_path(seed, root, recipe, pre_paths, unwrapped_ms):
     """Phase 14: data parallelism.  (a) ``offset_checks``; (b) the 30RS
     train entry in a child process of a world-1 NCCL group, so the model is
     DDP-wrapped on the card, with ``--orbax_checkpoints`` and a ``--resume``
-    from its ``.dcp``; (c) two gloo ranks on the one card: 30RS with
-    ``--remat`` in f32 with dropout 0 against one process on the same global
-    batches (this process, 1e-4 relative), then in bf16, then the MRT step
-    with the epilogue kernels and a collective ``.dcp`` save loaded here in
-    one process.  Gloo moves each step's gradients through host memory:
-    (c)'s times are not a speed number.  Returns the launch counts of (b)
-    and (c), every rank summed."""
+    from its ``.dcp``; (c) two gloo ranks on the one card at ``GLOO_DEPTH``:
+    30RS with ``--remat`` in f32 with dropout 0 and ``fast_mode`` against
+    one process without it on the same global batches (this process, 1e-4
+    relative), then in bf16, then the MRT step with the epilogue kernels and
+    a collective ``.dcp`` save loaded here in one process.  Gloo moves each
+    step's gradients through host memory: (c)'s times are not a speed
+    number.  Returns the launch counts of (b) and (c), every rank summed."""
     import torch
     from youtube_vln_tpu_torch import lily_base_config
     from youtube_vln_tpu_torch.entries import train as train_entry
@@ -2417,23 +2438,30 @@ def ddp_path(seed, root, recipe, pre_paths, unwrapped_ms):
              f"lr {resumed['first_lr']} against schedule(3) {resumed['schedule3']}")
     shutil.rmtree(result, ignore_errors=True)
 
-    # (c) two gloo ranks on the one card; the one-process f32 run here first
-    f32 = recipe + ["--compute_dtype", "float32", "--config_file",
-                    str(dropout_free_config(root)), "--remat", "--num_epochs", "1",
+    # (c) two gloo ranks on the one card at GLOO_DEPTH; the one-process f32
+    # run here first, without fast_mode, which the ranks' f32 run sets
+    f32 = recipe + ["--compute_dtype", "float32", "--remat", "--num_epochs", "1",
                     "--skip_val", "--output_dir", str(result)]
-    _, _, rec_one = run_entry(train_entry.main, f32 + ["--save_name", "f32_one"])
+    f32_cfg = flagship_config_file(root, "ddp_f32", **DROPOUT_FREE, **GLOO_DEPTH)
+    fast_cfg = flagship_config_file(root, "ddp_f32_fast_mode", **DROPOUT_FREE,
+                                    **GLOO_DEPTH, fast_mode=True)
+    bf16_cfg = flagship_config_file(root, "ddp_bf16", **GLOO_DEPTH)
+    _, _, rec_one = run_entry(train_entry.main, f32 + [
+        "--config_file", str(f32_cfg), "--save_name", "f32_one"])
     one = [s["losses"] for s in rec_one["steps"]]
     rec_one["engines"].clear()
     shutil.rmtree(result, ignore_errors=True)
     torch.cuda.empty_cache()
     c = run_children("ddp_gloo", DDP_WORLD, {"backend": "gloo", "seed": seed, "runs": [
         dict(name="30RS f32", kind="entry", per_micro=[2, 1],
-             argv=f32 + ["--orbax_checkpoints", "--save_name", "f32_ddp"]),
+             argv=f32 + ["--config_file", str(fast_cfg), "--orbax_checkpoints",
+                         "--save_name", "f32_ddp"]),
         dict(name="30RS bf16", kind="entry", per_micro=[2, 1],
-             argv=recipe + ["--remat", "--num_epochs", "1", "--skip_val",
-                            "--orbax_checkpoints", "--save_name", "bf16_ddp",
-                            "--output_dir", str(result)]),
-        dict(name="MRT", kind="mrt", paths=pre_paths, out_dir=str(root / "mrt_ddp"))]},
+             argv=recipe + ["--config_file", str(bf16_cfg), "--remat", "--num_epochs",
+                            "1", "--skip_val", "--orbax_checkpoints", "--save_name",
+                            "bf16_ddp", "--output_dir", str(result)]),
+        dict(name="MRT", kind="mrt", paths=pre_paths, depth=GLOO_DEPTH,
+             out_dir=str(root / "mrt_ddp"))]},
         root)
     for name in ("30RS f32", "30RS bf16"):
         per_rank = [r[name]["losses"] for r in c]
@@ -2442,17 +2470,17 @@ def ddp_path(seed, root, recipe, pre_paths, unwrapped_ms):
     ddp_f32 = c[0]["30RS f32"]["losses"]
     rel = max(abs(g[k] - w[k]) / max(abs(w[k]), 1e-12)
               for g, w in zip(ddp_f32, one) for k in w)
-    print(f"f32 30RS, 2 gloo ranks against one process: losses {ddp_f32} against {one}, "
-          f"max relative difference {rel:.3e}")
+    print(f"f32 30RS, 2 gloo ranks with fast_mode against one process without: "
+          f"losses {ddp_f32} against {one}, max relative difference {rel:.3e}")
     if len(ddp_f32) != len(one) or len(one) != 3 or not rel <= DDP_LOSS_RTOL:
-        fail(f"f32 30RS over 2 ranks: {len(ddp_f32)} steps against {len(one)}, "
-             f"relative difference {rel} above {DDP_LOSS_RTOL}")
+        fail(f"f32 30RS over 2 ranks with fast_mode: {len(ddp_f32)} steps against "
+             f"{len(one)}, relative difference {rel} above {DDP_LOSS_RTOL}")
     if c[0]["MRT"]["losses"] != c[1]["MRT"]["losses"]:
         fail("MRT over DDP: the ranks' global losses differ")
 
     # the MRT step's collective .dcp save, loaded in this process alone
     cfg = lily_base_config(ranking=True, traj_judge=True, masked_vision=True,
-                           masked_language=True)
+                           masked_language=True, **GLOO_DEPTH)
     t0 = time.perf_counter()
     from_dcp = Lily(cfg, device="cuda")
     ck.load_checkpoint(c[0]["MRT"]["dcp"]["path"], from_dcp)
@@ -2474,6 +2502,7 @@ def ddp_path(seed, root, recipe, pre_paths, unwrapped_ms):
     print(json.dumps({
         "ddp": "phase 14: 30RS entry over a world-1 NCCL group (DDP) and 2 gloo ranks "
                "on one card; gloo times are not a speed number",
+        "gloo_depth": GLOO_DEPTH,
         "offset_launches_bitwise_equal": n_offsets,
         "nccl_world1": {"ms_per_step": run_b["ms_per_step"], "unwrapped_ms_per_step":
                         unwrapped_ms, "ratio": run_b["ms_per_step"] / unwrapped_ms,
@@ -2484,7 +2513,7 @@ def ddp_path(seed, root, recipe, pre_paths, unwrapped_ms):
                         "resume_ms_per_step": resumed["ms_per_step"],
                         "launches": run_b["launches"]},
         "gloo_2_ranks_not_speed": {
-            "f32_losses": ddp_f32, "one_process_f32_losses": one,
+            "f32_fast_mode_losses": ddp_f32, "one_process_f32_losses": one,
             "f32_max_rel_diff": rel,
             "one_process_f32_ms_per_step": median_step_ms(rec_one),
             "f32_ms_per_step": [r["30RS f32"]["ms_per_step"] for r in c],
@@ -2839,22 +2868,24 @@ def losses_against_one(name, got, one):
 
 def tp_path(seed, root, common, pre_paths, pre_data_dir):
     """Phase 15: tensor parallelism over heads.  (a) ``head_shard_checks``;
-    (b) the 30RS train entry at full width under ``--mesh_shape 1 2`` in two
-    gloo children on the one card (global batch 8, ``--remat``): f32 with
-    every dropout 0 against one process on the same batches (1e-4
-    relative), its gathered ``0.bin`` against the one process's in keys and
-    shapes; bf16 with dropout 0.1, the replicated parameters bitwise equal
-    across the ranks and the sharded ones not, its ``.dcp`` loaded in one
-    process equal to the ranks' gathered weights and moments; (c) the MRT
-    pretrain entry under ``--mesh_shape 1 2`` with the epilogue kernels, 2
-    steps: 6 launches of B1-B4 and 24 of B5/B6 per micro-step per rank,
-    every LN output of B5 bitwise equal on the two ranks; (d) the 30RS
-    entry of (b) under ``--mesh_shape 1 8`` in eight gloo children, where
-    each rank holds 1.5 of the 12 text heads and attends on the 2 that
-    cover them: f32 against (b)'s one process (1e-4 relative), its gathered
-    ``0.bin`` in keys and shapes, bf16 at dropout 0.1 with the replicated
-    parameters bitwise equal across the eight ranks, 6 launches of B1-B4
-    per micro-step per rank (12 of B1/B2 with ``--remat``); (e)
+    (b) the 30RS train entry at full width and ``GLOO_DEPTH`` under
+    ``--mesh_shape 1 2`` in two gloo children on the one card (global batch
+    8, ``--remat``): f32 with every dropout 0 against one process on the
+    same batches (1e-4 relative), its gathered ``0.bin`` against the one
+    process's in keys and shapes; bf16 with dropout 0.1, the replicated
+    parameters bitwise equal across the ranks and the sharded ones not, its
+    ``.dcp`` loaded in one process equal to the ranks' gathered weights and
+    moments; (c) the MRT pretrain entry at ``GLOO_DEPTH`` under
+    ``--mesh_shape 1 2`` with the epilogue kernels, 2 steps: one launch of
+    B1-B4 per layer and of B5/B6 per vision-stream site per micro-step per
+    rank, every LN output of B5 bitwise equal on the two ranks; (d) the
+    30RS entry of (b) at full depth under ``--mesh_shape 1 8`` in eight
+    gloo children, where each rank holds 1.5 of the 12 text heads and
+    attends on the 2 that cover them: f32 against one process at full depth
+    (1e-4 relative), its gathered ``0.bin`` in keys and shapes, bf16 at
+    dropout 0.1 with the replicated parameters bitwise equal across the
+    eight ranks, 6 launches of B1-B4 per micro-step per rank (12 of B1/B2
+    with ``--remat``); (e)
     ``cover_checks``, run after (a).  Gloo moves every collective through
     host memory: the times are not a speed number.  Returns the launch
     counts of (b), (c) and (d), every rank summed."""
@@ -2881,21 +2912,28 @@ def tp_path(seed, root, common, pre_paths, pre_data_dir):
                        "--shuffle_visual_features", "--batch_size", str(TP_BATCH),
                        "--remat", "--num_epochs", "1", "--skip_val", "--output_dir",
                        str(result)]
-    f32 = recipe + ["--compute_dtype", "float32", "--config_file",
-                    str(dropout_free_config(root)), "--save_epochs", "1"]
+    f32 = recipe + ["--compute_dtype", "float32", "--save_epochs", "1"]
+    full_f32 = f32 + ["--config_file", str(flagship_config_file(root, "tp_f32",
+                                                                **DROPOUT_FREE))]
+    cut_cfg_path = flagship_config_file(root, "tp_bf16_cut", **GLOO_DEPTH)
+    cut_f32 = f32 + ["--config_file", str(flagship_config_file(
+        root, "tp_f32_cut", **DROPOUT_FREE, **GLOO_DEPTH))]
     mesh = ["--mesh_shape", "1", str(TP_MODEL)]
 
-    # (b) the one process first, then the two model ranks
-    _, _, rec_one = run_entry(train_entry.main, f32 + ["--save_name", "tp_one"])
-    one = [s["losses"] for s in rec_one["steps"]]
-    one_ms = median_step_ms(rec_one) if len(rec_one["steps"]) > 1 else rec_one["steps"][0]["ms"]
-    rec_one["engines"].clear()
-    torch.cuda.empty_cache()
-    epilogue_cfg = json.loads((REPO / "configs" / "bert_base_6_layer_6_connect.json")
-                              .read_text())
-    epilogue_cfg["use_epilogue_kernels"] = True
-    epilogue_cfg_path = root / "bert_base_6_layer_6_connect_epilogue.json"
-    epilogue_cfg_path.write_text(json.dumps(epilogue_cfg))
+    # (b) the one process first, at GLOO_DEPTH for (b) and at full depth
+    # for (d), then the two model ranks
+    one, one_ms, one_peak = {}, {}, {}
+    for depth, argv in (("cut", cut_f32), ("full", full_f32)):
+        _, _, rec_one = run_entry(train_entry.main, argv + ["--save_name", f"tp_one_{depth}"])
+        one[depth] = [s["losses"] for s in rec_one["steps"]]
+        one_ms[depth] = (median_step_ms(rec_one) if len(rec_one["steps"]) > 1
+                         else rec_one["steps"][0]["ms"])
+        one_peak[depth] = max(s["peak"] for s in rec_one["steps"]) / 2 ** 30
+        rec_one["engines"].clear()
+        del rec_one
+        torch.cuda.empty_cache()
+    epilogue_cfg_path = flagship_config_file(root, "tp_mrt_epilogue", **GLOO_DEPTH,
+                                             use_epilogue_kernels=True)
     mrt_argv = common[:]
     mrt_argv[mrt_argv.index("--config_file") + 1] = str(epilogue_cfg_path)
     mrt_argv += ["--pre_dataset", "ytb", "--prefix", "merge+", "--masked_vision",
@@ -2907,10 +2945,11 @@ def tp_path(seed, root, common, pre_paths, pre_data_dir):
                  "--save_name", "tp_mrt", "--output_dir", str(result)] + mesh
     c = run_children("tp_gloo", TP_MODEL, {"backend": "gloo", "seed": seed, "runs": [
         dict(name="TP 30RS f32", kind="entry", per_micro=[2, 1],
-             argv=f32 + mesh + ["--save_name", "tp_f32"]),
+             argv=cut_f32 + mesh + ["--save_name", "tp_f32"]),
         dict(name="TP 30RS bf16", kind="entry", per_micro=[2, 1], tp=True,
              gathered="tp_bf16_gathered", out_dir=str(root),
-             argv=recipe + mesh + ["--orbax_checkpoints", "--save_epochs", "1",
+             argv=recipe + mesh + ["--config_file", str(cut_cfg_path),
+                                   "--orbax_checkpoints", "--save_epochs", "1",
                                    "--save_name", "tp_bf16"]),
         dict(name="TP MRT", kind="tp_mrt", config_file=str(epilogue_cfg_path),
              argv=mrt_argv)]}, root)
@@ -2921,9 +2960,10 @@ def tp_path(seed, root, common, pre_paths, pre_data_dir):
         if any(l != per_rank[0] for l in per_rank):
             fail(f"{name}: the model ranks' losses differ: {per_rank}")
     tp_f32 = c[0]["TP 30RS f32"]["losses"]
-    rel = losses_against_one(f"f32 30RS under --mesh_shape 1 {TP_MODEL}", tp_f32, one)
-    one_shapes = bin_shapes(result / "tp_one" / "data" / "0.bin")
-    if bin_shapes(result / "tp_f32" / "data" / "0.bin") != one_shapes:
+    rel = losses_against_one(f"f32 30RS under --mesh_shape 1 {TP_MODEL}", tp_f32,
+                             one["cut"])
+    if bin_shapes(result / "tp_f32" / "data" / "0.bin") != bin_shapes(
+            result / "tp_one_cut" / "data" / "0.bin"):
         fail(f"the gathered .bin of --mesh_shape 1 {TP_MODEL} differs from the one "
              "process's in keys or shapes")
 
@@ -2944,7 +2984,7 @@ def tp_path(seed, root, common, pre_paths, pre_data_dir):
     wide_runs = ("TP 1x8 30RS f32", "TP 1x8 30RS bf16")
     w = run_children("tp_gloo_1x8", TP_WIDE, {"backend": "gloo", "seed": seed, "runs": [
         dict(name=wide_runs[0], kind="entry", per_micro=[2, 1],
-             argv=f32 + wide_mesh + ["--save_name", "tp8_f32"]),
+             argv=full_f32 + wide_mesh + ["--save_name", "tp8_f32"]),
         dict(name=wide_runs[1], kind="entry", per_micro=[2, 1], tp=True,
              argv=recipe + wide_mesh + ["--save_name", "tp8_bf16"])]}, root)
     for name in wide_runs:
@@ -2952,8 +2992,10 @@ def tp_path(seed, root, common, pre_paths, pre_data_dir):
         if any(l != per_rank[0] for l in per_rank):
             fail(f"{name}: the model ranks' losses differ: {per_rank}")
     wide_f32 = w[0][wide_runs[0]]["losses"]
-    wide_rel = losses_against_one(f"f32 30RS under --mesh_shape 1 {TP_WIDE}", wide_f32, one)
-    if bin_shapes(result / "tp8_f32" / "data" / "0.bin") != one_shapes:
+    wide_rel = losses_against_one(f"f32 30RS under --mesh_shape 1 {TP_WIDE}", wide_f32,
+                                  one["full"])
+    if bin_shapes(result / "tp8_f32" / "data" / "0.bin") != bin_shapes(
+            result / "tp_one_full" / "data" / "0.bin"):
         fail(f"the gathered .bin of --mesh_shape 1 {TP_WIDE} differs from the one "
              "process's in keys or shapes")
     check_tp_states(wide_runs[1], [r[wide_runs[1]]["state"] for r in w], TP_WIDE)
@@ -2961,7 +3003,7 @@ def tp_path(seed, root, common, pre_paths, pre_data_dir):
     PHASE_S["15d tp 1x8"] = round(wide_s, 1)
 
     # the (1, 2) .dcp resumed in one process: the ranks' gathered state
-    cfg = lily_base_config()
+    cfg = lily_base_config(**GLOO_DEPTH)
     _, args = parse_run_config(recipe)
     loaded = []
     t0 = time.perf_counter()
@@ -3010,10 +3052,11 @@ def tp_path(seed, root, common, pre_paths, pre_data_dir):
                                "step_ms": {name: [r[name]["step_ms"] for r in w]
                                            for name in wide_runs},
                                "phase_s": wide_s}},
+        "gloo_depth": GLOO_DEPTH,
         "f32_losses": tp_f32, "one_process_f32_losses": one, "f32_max_rel_diff": rel,
         "peak_gib_per_rank": {name: [r[name]["peak_gib"] for r in c]
                               for name in ("TP 30RS f32", "TP 30RS bf16", "TP MRT")},
-        "one_process_f32_peak_gib": max(s["peak"] for s in rec_one["steps"]) / 2 ** 30,
+        "one_process_f32_peak_gib": one_peak,
         "gloo_not_speed": {
             "ms_per_step": {name: [r[name]["ms_per_step"] for r in c]
                             for name in ("TP 30RS f32", "TP 30RS bf16", "TP MRT")},

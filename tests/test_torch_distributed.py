@@ -157,14 +157,24 @@ TASKS = {"engine": _engine_task}
 @pytest.fixture(scope="module")
 def env(tmp_path_factory):
     import test_torch_engine as T
-    return T.build_env(tmp_path_factory.mktemp("ddp"))
+    env = T.build_env(tmp_path_factory.mktemp("ddp"))
+    fast = env["root"] / "d64_fast_mode.json"
+    fast.write_text(json.dumps({**json.loads(Path(env["config_file"]).read_text()),
+                                "fast_mode": True}))
+    env["fast_mode_config_file"] = str(fast)
+    return env
 
 
 def _finetune_argv(env, pkg, accum, extra=()):
+    """Accumulation 2 runs with ``fast_mode`` on, in both packages: a no-op
+    on the flattened step batch, which the port's step accepts under a data
+    axis as the JAX step does."""
     import test_torch_engine as T
+    model = (["--config_file", env["fast_mode_config_file"]] if accum == 2
+             else [])
     return T.flags(env, pkg, "finetune", ["--batch_size", "4",
                                           "--gradient_accumulation_steps",
-                                          str(accum), *extra])
+                                          str(accum), *model, *extra])
 
 
 @pytest.fixture(scope="module")

@@ -83,6 +83,18 @@ def test_tiny_all_heads_match_jax(sparse_heads):
         assert out["vision"].shape == (3, 5, 23)
 
 
+@pytest.mark.parametrize("option", [
+    dict(fusion_method="sum"), dict(hidden_act="relu", v_hidden_act="relu"),
+    dict(hidden_act="swish", v_hidden_act="swish")], ids=["sum", "relu", "swish"])
+def test_fusion_and_activation_options_match_jax(option):
+    """The pooled streams summed instead of multiplied (``fuse_pooled``) and
+    the other two activations of ``ACT2FN``, on the tiny model's heads."""
+    jax_cfg = jax_tiny_config(**HEADS, **option)
+    port_cfg = tiny_config(**HEADS, **option, compute_dtype="float32")
+    params, model = _pair(jax_cfg, port_cfg)
+    _compare_heads(params, model, jax_cfg, _batch(2, 3, 12, 20, 64, 256))
+
+
 def test_flagship_widths_all_heads_match_jax():
     """Flagship widths (768 text / 1024 vision and bi, 8 and 12 heads) at
     cut depth; S_v = 202 routes the vision self-attention and the

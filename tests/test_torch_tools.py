@@ -6,6 +6,7 @@ against the JAX script's host bytes, and ``northstar`` on a small R2R
 fixture.  Each JSON line carries the keys of the JAX script's line where
 the quantity is the same (the key sets below are read off those
 scripts)."""
+import ast
 import contextlib
 import dataclasses
 import importlib.util
@@ -107,6 +108,15 @@ def _last_json(capsys):
     return json.loads(capsys.readouterr().out.strip().splitlines()[-1])
 
 
+def _jax_strings(script):
+    """Every string constant of a JAX script or root entry, read by ``ast``
+    without running it: the keys its JSON lines can carry, and its variant
+    names."""
+    tree = ast.parse((REPO / script).read_text())
+    return {n.value for n in ast.walk(tree)
+            if isinstance(n, ast.Constant) and isinstance(n.value, str)}
+
+
 def test_check_kernels_passes_on_the_plain_twins(capsys):
     """(a)-(c) and (e) on the CPU: the drop fraction in its band, mask replay
     by finite differences within 2e-2 of the bound, two launches bitwise
@@ -115,6 +125,7 @@ def test_check_kernels_passes_on_the_plain_twins(capsys):
                                     "multichip"])
     assert _last_json(capsys) == out
     assert out["kernel_tpu_checks"] == "ok" and out["failures"] == []
+    assert JAX_CHECK_KEYS <= _jax_strings("scripts/check_kernels_tpu.py")
     assert JAX_CHECK_KEYS - {"bwd_probe_attribution"} <= set(out)
     assert abs(out["drop_frac"] - 0.1) < 5 * np.sqrt(0.09 / (2 * 101 * 256))
     for key in ("epilogue_fd_rel", "attn_fd_rel", "bi_attn_fd_rel"):
@@ -187,6 +198,9 @@ def test_profile_step_variants_and_table(narrow_config_file, capsys):
     table = json.loads(lines[-2])
     assert json.loads(lines[-1])["profile_step"] == out["profile_step"]
     assert set(out["profile_step"]) == {"full", "fwd"}
+    # every variant the port offers or refuses is one of the JAX script's
+    assert (set(profile_step.VARIANTS) | set(profile_step.NO_COUNTERPART)
+            <= _jax_strings("scripts/profile_step.py"))
     assert all(v > 0 for v in out["profile_step"].values())
     assert out["batch"] == [1, 6, 60, 808] and out["timing"] == "host clock"
     assert table["profile"] == "full" and table["device_idle_share"] == "not measured"
@@ -200,6 +214,8 @@ def test_bench_line(narrow_config_file, capsys):
     out = bench.main(["--config_file", narrow_config_file, "--batch_size", "1", "--steps", "1",
                       "--windows", "1", "--eval_dispatches", "1"] + CPU)
     assert _last_json(capsys) == out
+    assert (JAX_BENCH_KEYS | JAX_BENCH_DETAIL | JAX_BENCH_EVAL | JAX_BENCH_EVAL_ROW
+            <= _jax_strings("bench.py"))
     assert JAX_BENCH_KEYS <= set(out) and JAX_BENCH_DETAIL <= set(out["detail"])
     detail = out["detail"]
     assert JAX_BENCH_EVAL <= set(detail["eval"])
@@ -243,6 +259,7 @@ def test_bench_e2e_line(config_file, capsys):
     out = bench_e2e.main(["--config_file", config_file, "--batch_size", "1",
                           "--steps", "1", "--n_videos", "3"] + CPU)
     assert _last_json(capsys) == out
+    assert JAX_E2E_DETAIL <= _jax_strings("scripts/bench_e2e.py")
     assert JAX_E2E_DETAIL <= set(out["detail"])
     detail = out["detail"]
     assert detail["steps_timed"] == 1 and detail["slab_overflow"] == 0
@@ -317,6 +334,7 @@ def test_northstar_pass_and_fail(tmp_path, config_file, capsys):
             "--output_dir", str(tmp_path / "result")] + CPU
     geometry = ["--extra", "--max_path_length", "3", "--max_num_boxes", "5"]
     first = northstar.main(argv + geometry)
+    assert set(first) <= _jax_strings("scripts/northstar.py")
     assert first["northstar"] == "NO_EXPECTATION" and first["comparison"] == {}
     sr, spl = first["metrics"]["success_rate"], first["metrics"]["spl"]
     assert 0.0 <= spl <= sr <= 1.0

@@ -285,23 +285,67 @@ def test_steps_refuse_a_missing_head():
         pts.build_train_step(model, cfg, args, optimizer, device="cpu")
 
 
-@pytest.mark.parametrize("mode", ["in_batch_pairs", "fast_mode"])
-def test_batch_expansion_refused_under_a_data_axis(mode, monkeypatch):
-    """``in_batch_pairs`` and ``fast_mode`` expand the global batch in the
-    JAX step and a rank's rows here: under a data axis above 1 both step
-    builders refuse them before any step runs; in one process they build
-    (their outputs against JAX: ``test_torch_model.py``)."""
-    cfg = tiny_config(**{mode: True}, compute_dtype="float32")
-    model = Lily(cfg, device="cpu").init_weights(0)
-    args = RunConfig(ranking=True)
+def _fast_mode_accepted(monkeypatch):
+    """``fast_mode`` broadcasts the text rows over as many image rows: a
+    no-op on a flattened step batch, so under a data axis of 2 both
+    builders build and the step's losses are bitwise those of the mode
+    off, and the JAX ``loss_fn``'s with and without it (1e-4, f32)."""
+    monkeypatch.setattr(pts.distributed, "data_world", lambda: 2)
+    batch = _batch(80, tiny_config(**WIDE), b=2)
+    # the eval layout's multi-hot target
+    eval_batch = dict(batch, ranking_target=(np.arange(NC)[None] == 0)
+                      .repeat(2, 0).astype(np.float32))
+    args = RunConfig(**RUNS["30RS"])
+    jtasks = jts._task_config(JaxRunConfig(**RUNS["30RS"]), training=True)
+    got, want = {}, {}
+    for on in (False, True):
+        jax_cfg, cfg, params, model = _pair(RANKING, fast_mode=on)
+        optimizer, _ = pts.create_train_state(model, args, steps_per_epoch=1)
+        evals = pts.build_eval_step(model, cfg, args, device="cpu")(eval_batch)
+        metrics = pts.build_train_step(model, cfg, args, optimizer,
+                                       device="cpu")(batch, seed=0)
+        got[on] = {k: float(v) for k, v in metrics.items()}
+        got[on].update({"eval/" + k: float(v) for k, v in evals.items()})
+        jloss, _ = jts.loss_fn(params, jax_cfg,
+                               {k: jnp.asarray(v) for k, v in batch.items()},
+                               jtasks, jax.random.PRNGKey(0), True)
+        want[on] = float(jloss)
+    assert got[True] == got[False]
+    for on in (False, True):
+        np.testing.assert_allclose(got[True]["loss/train"], want[on], rtol=1e-4)
+
+
+def _in_batch_pairs_refused(monkeypatch):
+    """``in_batch_pairs`` gives the heads N² rows, which the JAX step's
+    ``[bs, nc]`` reshape refuses for any N > 1 (JAX
+    ``training/losses.py:214``): the JAX ``loss_fn`` raises on a batch of
+    two, and under a data axis of 2 (always N > 1) both builders refuse the
+    mode before any step; in one process they build (their outputs against
+    JAX at one row: ``test_torch_model.py``)."""
+    jax_cfg, cfg, params, model = _pair(RANKING, in_batch_pairs=True)
+    batch = _batch(80, cfg, b=2)
+    jtasks = jts._task_config(JaxRunConfig(**RUNS["30RS"]), training=True)
+    with pytest.raises(TypeError, match="cannot reshape"):
+        jts.loss_fn(params, jax_cfg, {k: jnp.asarray(v) for k, v in batch.items()},
+                    jtasks, jax.random.PRNGKey(0), True)
+    args = RunConfig(**RUNS["30RS"])
     optimizer, _ = pts.create_train_state(model, args, steps_per_epoch=1)
     pts.build_train_step(model, cfg, args, optimizer, device="cpu")
     pts.build_eval_step(model, cfg, args, device="cpu")
     monkeypatch.setattr(pts.distributed, "data_world", lambda: 2)
-    with pytest.raises(ValueError, match=f"{mode} expands the global batch"):
+    message = r"in_batch_pairs gives the heads N\^2 rows .*training/losses.py:214"
+    with pytest.raises(ValueError, match=message):
         pts.build_train_step(model, cfg, args, optimizer, device="cpu")
-    with pytest.raises(ValueError, match=f"{mode} expands the global batch"):
+    with pytest.raises(ValueError, match=message):
         pts.build_eval_step(model, cfg, args, device="cpu")
+
+
+@pytest.mark.parametrize("mode", ["in_batch_pairs", "fast_mode"])
+def test_batch_expansion_refused_under_a_data_axis(mode, monkeypatch):
+    """Under a data axis the step builders refuse ``in_batch_pairs``, which
+    the JAX step cannot run there either, and accept ``fast_mode``."""
+    {"in_batch_pairs": _in_batch_pairs_refused,
+     "fast_mode": _fast_mode_accepted}[mode](monkeypatch)
 
 
 @pytest.mark.parametrize("overrides,valid", [

@@ -23,11 +23,13 @@ ignored.  Differences from the JAX copy:
 
 ``RunConfig`` copies the fields of ``youtube_vln_tpu/config.py:RunConfig``
 that the train step, the datasets, the loader and the command line read,
-with the same defaults and the ``validate`` checks that concern them; the
-one not ported yet (the compilation cache) is left out, and
-``utils/cli.py`` refuses its flag.  ``mesh_shape`` / ``mesh_axes`` name the
-data-parallel axis (``parallel/mesh.py``; a ``model`` axis is refused) and
-``orbax_checkpoints`` saves ``torch.distributed.checkpoint`` directories.
+with the same defaults and the ``validate`` checks that concern them.
+``compilation_cache_dir`` names the directory the CUDA kernels are built
+and loaded in (``ops/_build.py:set_build_dir``), where the JAX package
+points XLA's compilation cache.  ``mesh_shape`` / ``mesh_axes`` name the
+``data`` and ``model`` axes (``parallel/mesh.py``: data parallelism over
+``data``, the heads sharded over ``model``) and ``orbax_checkpoints``
+saves ``torch.distributed.checkpoint`` directories.
 """
 from __future__ import annotations
 

@@ -244,17 +244,27 @@ def _sum_metrics(metrics: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
 
 
 def _refuse_batch_expansion(cfg) -> None:
-    """``in_batch_pairs`` and ``fast_mode`` expand the batch inside the
-    encoder (``models/vilbert.py:Encoder.forward``).  The JAX step expands
-    the global batch (``parallel/train_step.py:289-308`` there); a rank here
-    holds only its rows of it, so under a data axis above 1 either mode
-    would pair other candidates: refused."""
+    """``in_batch_pairs`` pairs every text row of the flattened batch with
+    every image row (``models/vilbert.py:Encoder.forward``): N rows become
+    N².  No head of the JAX step takes N² rows: in the JAX package the
+    ranking and trajectory heads reshape their logits to ``[bs, nc]``
+    (``training/losses.py:214,225``), the sparse masked heads gather with
+    the N rows' indices (``models/vilbert.py:430,438``) and the dense masked
+    losses take the N rows' targets (``training/losses.py:203,209``).  So
+    the JAX step raises on every global batch of more than one row, and
+    under a data axis above 1 the global batch always has more: refused
+    before any step.  In one process the mode fails where JAX's does.
+
+    ``fast_mode`` is not refused: it broadcasts the text rows over the
+    image rows, and a flattened step batch (``flatten_candidates``) has as
+    many of each, on a rank as in the global batch, so it changes nothing."""
     world = distributed.data_world()
-    for mode in ("in_batch_pairs", "fast_mode"):
-        if getattr(cfg, mode, False) and world > 1:
-            raise ValueError(f"{mode} expands the global batch, which no rank "
-                             f"holds under a data axis of {world}: run it in "
-                             "one process")
+    if getattr(cfg, "in_batch_pairs", False) and world > 1:
+        raise ValueError(
+            "in_batch_pairs gives the heads N^2 rows for a batch of N, which "
+            "the JAX step's [bs, nc] reshape (training/losses.py:214) and "
+            "masked heads refuse for any N > 1; a data axis of "
+            f"{world} always gives N > 1")
 
 
 def build_train_step(model: torch.nn.Module, cfg, args: RunConfig,
