@@ -15,7 +15,8 @@ four-task pretraining, with accumulation 1 and 2, and so do the
 ``testset_paths``) is equal over a grid of flags; a ``Subset`` keeps the
 dataset's ``reseed``, so Loader batches with 2 workers equal JAX's;
 ``--remat`` leaves the loss and every gradient as they are at dropout 0.1;
-``--profile_dir`` writes a Chrome trace."""
+``--profile_dir`` writes a Chrome trace with the host spans as its
+named ranges."""
 import itertools
 import json
 from pathlib import Path
@@ -40,6 +41,7 @@ from youtube_vln_tpu_torch.parallel import train_step as pts
 from youtube_vln_tpu_torch.training import engine as pengine
 from youtube_vln_tpu_torch.utils import cli as pcli
 from youtube_vln_tpu_torch.utils import entry as pentry
+from youtube_vln_tpu_torch.utils import spans
 
 LOSS_TOL = 1e-4
 DROPOUT = ("hidden_dropout_prob", "attention_probs_dropout_prob",
@@ -377,6 +379,11 @@ def test_profile_dir_writes_a_trace(env, tmp_path):
         f"train_epoch0_steps2-{len(engine.train_loader) - 1}.pt.trace.json"]
     events = json.loads(traces[0].read_text())["traceEvents"]
     assert any("aten::" in str(e.get("name", "")) for e in events)
+    # the port's host spans name the trace's ranges while it profiles
+    names = {e.get("name") for e in events}
+    assert {"step", "step.forward", "step.backward", "step.optimizer",
+            "feed.transfer", "loader.next"} <= names
+    assert spans.span("a") is spans.span("b")
 
 
 def _plain_launchers(monkeypatch):

@@ -40,7 +40,7 @@ for module in ("device", "ops.philox", "ops.epilogue", "ops.masking",
                "entries.merge_stores", "entries.convert_lmdb", "entries.extract_frames",
                "entries.check_kernels", "entries.profile_step", "entries.bench",
                "entries.bench_serving", "entries.bench_e2e", "entries.bench_loader",
-               "entries.northstar"):
+               "entries.northstar", "utils.spans"):
     assert pkg.__name__ + "." + module in names, module
 
 import os, tempfile
@@ -181,7 +181,7 @@ _HOST_TOOLS = r"""
 import sys
 from youtube_vln_tpu_torch.data.store import convert_lmdb, merge_stores
 from youtube_vln_tpu_torch.pipeline import assets, frames
-from youtube_vln_tpu_torch.utils import file_cache, measure
+from youtube_vln_tpu_torch.utils import file_cache, measure, spans
 from youtube_vln_tpu_torch.entries import (bench_loader, convert_lmdb as convert_entry,
                                            extract_frames, merge_stores as merge_entry)
 assert "torch" not in sys.modules, "a host tool imports torch"
@@ -191,8 +191,8 @@ print("host only")
 
 def test_host_tools_import_no_torch():
     """The store converters, the frame and asset steps, the file cache, the
-    shared measurement helpers, ``bench_loader`` and the host entries run
-    without torch."""
+    shared measurement helpers, the host spans, ``bench_loader`` and the
+    host entries run without torch."""
     r = _run(["-c", _HOST_TOOLS], REPO)
     assert r.returncode == 0, r.stdout + r.stderr
     assert r.stdout.strip().endswith("host only")

@@ -31,6 +31,8 @@ from typing import Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 
+from ..utils import spans
+
 _MALLOC_TUNED = False
 
 
@@ -76,8 +78,11 @@ def _get_item(epoch, idx):
 
 
 def _fetch(task):
+    """Worker: (item, t0, t1), the times of its assembly."""
     epoch, idx = task
-    return _get_item(epoch, idx)
+    t0 = spans.clock()
+    item = _get_item(epoch, idx)
+    return item, t0, spans.clock()
 
 
 def _pack_into_slab(item, slab) -> Optional[list]:
@@ -102,15 +107,17 @@ def _pack_into_slab(item, slab) -> Optional[list]:
 
 def _fetch_shm(task, slot):
     """Worker: build the item, write it into slab ``slot`` (handed out by
-    the parent, which owns the free list) and return only the schema.
-    Falls back to pickling the item when it exceeds the slab size,
-    counted loudly by the parent (shm_fallbacks)."""
+    the parent, which owns the free list) and return only the schema,
+    with the times of the item's assembly and packing.  Falls back to
+    pickling the item when it exceeds the slab size, counted loudly by the
+    parent (shm_fallbacks)."""
     epoch, idx = task
+    t0 = spans.clock()
     item = _get_item(epoch, idx)
     schema = _pack_into_slab(item, _WORKER_SLABS[slot])
     if schema is None:
-        return ("pickle", "slab_overflow", item)
-    return ("shm", schema, None)
+        return ("pickle", "slab_overflow", item, t0, spans.clock())
+    return ("shm", schema, None, t0, spans.clock())
 
 
 def _unpack_from_slab(slab, schema):
@@ -222,6 +229,9 @@ class Loader:
     The pool forks: a worker inherits the dataset and runs only numpy and
     the store reader (the datasets import no torch), so forking from a
     process that has initialised CUDA is safe for these workers.
+    While ``utils.spans`` records, the Loader opens ``loader.next``,
+    ``loader.wait``, ``loader.collate`` and ``loader.item`` (a worker times
+    each item and the parent records it).
     """
 
     def __init__(self, dataset, batch_size: int, *, shuffle: bool,
@@ -270,17 +280,18 @@ class Loader:
         try:
             buf: List[Dict] = []
             for idx in order:
-                if hasattr(self.dataset, "reseed"):
-                    # same per-item seeding as the worker-pool path, so
-                    # num_workers never changes the sampled data
-                    self.dataset.reseed(
-                        _item_seed(self.seed, self.epoch, int(idx)))
-                buf.append(self.dataset[int(idx)])
+                with spans.span("loader.item"):
+                    if hasattr(self.dataset, "reseed"):
+                        # same per-item seeding as the worker-pool path, so
+                        # num_workers never changes the sampled data
+                        self.dataset.reseed(
+                            _item_seed(self.seed, self.epoch, int(idx)))
+                    buf.append(self.dataset[int(idx)])
                 if len(buf) == self.batch_size:
-                    q.put(collate(buf, self.nc, self.with_instr_id, self.nc_uniq))
+                    q.put(self._collate(buf))
                     buf = []
             if buf and not self.drop_last:
-                q.put(collate(buf, self.nc, self.with_instr_id, self.nc_uniq))
+                q.put(self._collate(buf))
             q.put(None)
         except BaseException as e:  # surface worker errors to the consumer
             q.put(e)
@@ -295,17 +306,35 @@ class Loader:
                           * self.batch_size]
         return order
 
+    def _collate(self, buf: List[Dict]) -> Dict[str, np.ndarray]:
+        with spans.span("loader.collate"):
+            return collate(buf, self.nc, self.with_instr_id, self.nc_uniq)
+
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
-        if self.num_workers > 0:
-            yield from self._iter_multiprocess()
-            return
+        """The batches, each under a ``loader.next`` span from the resume
+        of the path that makes them to its yield (and one more for the call
+        that finds the epoch's end)."""
+        batches = (self._iter_multiprocess() if self.num_workers > 0
+                   else self._iter_threaded())
+        try:
+            while True:
+                with spans.span("loader.next"):
+                    batch = next(batches, None)
+                if batch is None:
+                    return
+                yield batch
+        finally:
+            batches.close()
+
+    def _iter_threaded(self) -> Iterator[Dict[str, np.ndarray]]:
         order = self._order()
         q: queue.Queue = queue.Queue(maxsize=self.prefetch)
         t = threading.Thread(target=self._produce, args=(q, order),
-                             daemon=True)
+                             name="loader", daemon=True)
         t.start()
         while True:
-            item = q.get()
+            with spans.span("loader.wait"):
+                item = q.get()
             if item is None:
                 break
             if isinstance(item, BaseException):
@@ -386,7 +415,9 @@ class Loader:
                     used_slots: List[int] = []
                     while pending:
                         res, slot = pending.popleft()
-                        kind, payload, item = res.get()
+                        with spans.span("loader.wait"):
+                            kind, payload, item, t0, t1 = res.get()
+                        spans.record("loader.item", t0, t1, "worker")
                         if kind == "shm":
                             buf.append(_unpack_from_slab(slabs[slot], payload))
                             used_slots.append(slot)
@@ -405,23 +436,30 @@ class Loader:
                             buf.append(item)
                             free.append(slot)
                         if len(buf) == self.batch_size:
-                            yield collate(buf, self.nc, self.with_instr_id, self.nc_uniq)
+                            yield self._collate(buf)
                             buf = []
                             free.extend(used_slots)
                             used_slots = []
                         submit()
                     if buf and not self.drop_last:
-                        yield collate(buf, self.nc, self.with_instr_id, self.nc_uniq)
+                        yield self._collate(buf)
                 else:
                     buf = []
                     chunk = max(1, self.batch_size // self.num_workers)
-                    for item in pool.imap(_fetch, tasks, chunksize=chunk):
+                    items = pool.imap(_fetch, tasks, chunksize=chunk)
+                    while True:
+                        with spans.span("loader.wait"):
+                            got = next(items, None)
+                        if got is None:
+                            break
+                        item, t0, t1 = got
+                        spans.record("loader.item", t0, t1, "worker")
                         buf.append(item)
                         if len(buf) == self.batch_size:
-                            yield collate(buf, self.nc, self.with_instr_id, self.nc_uniq)
+                            yield self._collate(buf)
                             buf = []
                     if buf and not self.drop_last:
-                        yield collate(buf, self.nc, self.with_instr_id, self.nc_uniq)
+                        yield self._collate(buf)
         finally:
             # a consumer that stops mid-epoch leaves the items of the batch
             # it was handed in ``buf``, each a view of its slab: dropped

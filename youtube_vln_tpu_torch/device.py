@@ -7,6 +7,8 @@ from typing import Dict, Iterable, Iterator
 import numpy as np
 import torch
 
+from .utils import spans
+
 
 def resolve_device(device) -> torch.device:
     """The device an entry point runs on; CUDA unless the caller asks for
@@ -40,14 +42,18 @@ def check_device(model: torch.nn.Module, device) -> torch.device:
 def to_device(batch: Dict[str, np.ndarray], device: torch.device
               ) -> Dict[str, torch.Tensor]:
     """numpy batch -> tensors on ``device``; to a GPU through pinned host
-    memory and non-blocking copies on the current stream.  Tensors already
+    memory and non-blocking copies on the current stream (spans
+    ``feed.pin`` and ``feed.copy``, each a tensor's).  Tensors already
     there are passed through."""
     out = {}
     for k, v in batch.items():
         t = v if torch.is_tensor(v) else torch.from_numpy(np.ascontiguousarray(v))
         if t.device.type != device.type:
             if device.type == "cuda":
-                t = t.pin_memory().to(device, non_blocking=True)
+                with spans.span("feed.pin"):
+                    t = t.pin_memory()
+                with spans.span("feed.copy"):
+                    t = t.to(device, non_blocking=True)
             else:
                 t = t.to(device)
         out[k] = t
@@ -58,16 +64,19 @@ def prefetch_to_device(batches: Iterable[Dict[str, np.ndarray]],
                        device: torch.device, depth: int = 2
                        ) -> Iterator[Dict[str, torch.Tensor]]:
     """Starts the copies of up to ``depth`` batches ahead of their use, so
-    the host-to-device transfer overlaps the work on earlier batches."""
+    the host-to-device transfer overlaps the work on earlier batches.  Each
+    batch's ``to_device`` is a ``feed.transfer`` span."""
     buf = collections.deque()
     it = iter(batches)
     for b in it:
-        buf.append(to_device(b, device))
+        with spans.span("feed.transfer"):
+            buf.append(to_device(b, device))
         if len(buf) >= depth:
             break
     while buf:
         out = buf.popleft()
         for b in it:
-            buf.append(to_device(b, device))
+            with spans.span("feed.transfer"):
+                buf.append(to_device(b, device))
             break
         yield out

@@ -20,13 +20,15 @@ from ..config import LilyConfig
 from ..device import prefetch_to_device, resolve_device, to_device
 from ..parallel.train_step import expand_beam_steps, flatten_candidates
 from ..training.losses import pad_packed
+from ..utils import spans
 
 
 def build_score_step(model: torch.nn.Module, cfg: LilyConfig,
                      device="cuda") -> Callable[[Dict[str, torch.Tensor]],
                                                 torch.Tensor]:
     """step(batch on ``device``) -> [bs, nc] f32 ranking scores, -inf at
-    padded candidates."""
+    padded candidates.  A call is a ``score`` span around ``score.expand``,
+    ``score.forward`` and ``score.pad``: host time to issue the work."""
     device = resolve_device(device)
     if not cfg.ranking:
         raise ValueError("the beam scorer needs the ranking head (cfg.ranking)")
@@ -36,16 +38,19 @@ def build_score_step(model: torch.nn.Module, cfg: LilyConfig,
     model.eval()
 
     def step(batch):
-        with torch.inference_mode():
-            flat = flatten_candidates(expand_beam_steps(batch))
-            outputs = model(
-                flat["instr_tokens"], flat["image_features"],
-                flat["image_locations"], token_type_ids=flat["segment_ids"],
-                attention_mask=flat["instr_mask"],
-                image_attention_mask=flat["image_mask"])
-            bs, nc = batch["opt_mask"].shape
-            return pad_packed(outputs["ranking"].reshape(bs, nc),
-                              batch["opt_mask"])
+        with spans.span("score"), torch.inference_mode():
+            with spans.span("score.expand"):
+                flat = flatten_candidates(expand_beam_steps(batch))
+            with spans.span("score.forward"):
+                outputs = model(
+                    flat["instr_tokens"], flat["image_features"],
+                    flat["image_locations"], token_type_ids=flat["segment_ids"],
+                    attention_mask=flat["instr_mask"],
+                    image_attention_mask=flat["image_mask"])
+            with spans.span("score.pad"):
+                bs, nc = batch["opt_mask"].shape
+                return pad_packed(outputs["ranking"].reshape(bs, nc),
+                                  batch["opt_mask"])
     return step
 
 

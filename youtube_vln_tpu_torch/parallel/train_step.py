@@ -52,6 +52,7 @@ from ..device import resolve_device, to_device
 from ..ops.philox import site_seed
 from ..training import losses as losses_lib
 from ..training.optimization import AdamWRef, make_schedule, param_groups
+from ..utils import spans
 from . import distributed
 from .tensor import average_over_model
 
@@ -278,7 +279,9 @@ def build_train_step(model: torch.nn.Module, cfg, args: RunConfig,
     dropout seed, drawn by the caller on the host and the same on every
     rank; ``cfg`` is the model's configuration, checked against the tasks
     of ``args``.  Under a process group the model is wrapped in DDP, which
-    synchronises the gradients at the last micro-step alone."""
+    synchronises the gradients at the last micro-step alone.  A call is a
+    ``step`` span around ``step.forward`` and ``step.backward`` (each
+    micro-step's) and ``step.optimizer``: host time to issue the work."""
     device = resolve_device(device)
     _check_model(model, cfg, args, device)
     _refuse_batch_expansion(cfg)
@@ -293,35 +296,39 @@ def build_train_step(model: torch.nn.Module, cfg, args: RunConfig,
     total_counts = distributed.sum_across_data if grouped else None
 
     def step(batch, seed: int) -> Dict[str, torch.Tensor]:
-        net.train()
-        batch = to_device(batch, device)
-        micro = ([batch] if accum == 1 else
-                 [{k: v[i] for k, v in batch.items()} for i in range(accum)])
-        metrics: Dict[str, torch.Tensor] = {}
-        for i, mb in enumerate(micro):
-            mb_seed = seed if accum == 1 else site_seed(seed, MICRO_STEP_SITE + i)
-            sync = (net.no_sync() if grouped and i < accum - 1
-                    else contextlib.nullcontext())
-            with sync:
-                loss, m = loss_fn(net, mb, tasks, mb_seed, rank, total_counts)
-                # DDP averages the gradients of the data ranks' shares
-                (loss * world if world > 1 else loss).backward()
-            for k, v in m.items():
-                metrics[k] = metrics[k] + v.detach() if k in metrics else v.detach()
-        if shard is not None:
-            # the replicated embedding tables, equal on every model rank
-            average_over_model([p.grad for p in synced if p.grad is not None],
-                               shard)
-        if accum > 1:
-            torch._foreach_div_([p.grad for p in params if p.grad is not None],
-                                float(accum))
-            metrics = {k: v / accum if k.startswith("loss/") else v
-                       for k, v in metrics.items()}
-        if grouped:
-            metrics = _sum_metrics(metrics)
-        optimizer.step()
-        optimizer.zero_grad(set_to_none=True)
-        return metrics
+        with spans.span("step"):
+            net.train()
+            batch = to_device(batch, device)
+            micro = ([batch] if accum == 1 else
+                     [{k: v[i] for k, v in batch.items()} for i in range(accum)])
+            metrics: Dict[str, torch.Tensor] = {}
+            for i, mb in enumerate(micro):
+                mb_seed = seed if accum == 1 else site_seed(seed, MICRO_STEP_SITE + i)
+                sync = (net.no_sync() if grouped and i < accum - 1
+                        else contextlib.nullcontext())
+                with sync:
+                    with spans.span("step.forward"):
+                        loss, m = loss_fn(net, mb, tasks, mb_seed, rank, total_counts)
+                    with spans.span("step.backward"):
+                        # DDP averages the gradients of the data ranks' shares
+                        (loss * world if world > 1 else loss).backward()
+                for k, v in m.items():
+                    metrics[k] = metrics[k] + v.detach() if k in metrics else v.detach()
+            if shard is not None:
+                # the replicated embedding tables, equal on every model rank
+                average_over_model([p.grad for p in synced if p.grad is not None],
+                                   shard)
+            if accum > 1:
+                torch._foreach_div_([p.grad for p in params if p.grad is not None],
+                                    float(accum))
+                metrics = {k: v / accum if k.startswith("loss/") else v
+                           for k, v in metrics.items()}
+            if grouped:
+                metrics = _sum_metrics(metrics)
+            with spans.span("step.optimizer"):
+                optimizer.step()
+                optimizer.zero_grad(set_to_none=True)
+            return metrics
 
     return step
 

@@ -49,6 +49,7 @@ from ..models import Lily
 from ..parallel import distributed
 from ..parallel import train_step as ts
 from ..parallel.mesh import mesh_extents
+from ..utils import spans
 from ..utils.misc import NoneLogger
 from . import checkpoint as ckpt
 
@@ -281,15 +282,19 @@ class Engine:
         return int(self.rng.integers(0, 2 ** 64, dtype=np.uint64))
 
     def _start_trace(self):
+        """A profiler over CPU (and CUDA) activity, with the port's host
+        spans (``utils/spans.py``) as its named ranges."""
         from torch.profiler import ProfilerActivity, profile
         activities = [ProfilerActivity.CPU]
         if self.device.type == "cuda":
             activities.append(ProfilerActivity.CUDA)
         prof = profile(activities=activities)
         prof.start()
+        spans.annotate(True)
         return prof
 
     def _stop_trace(self, prof, epoch: int, first: int, end: int) -> None:
+        spans.annotate(False)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         prof.stop()
