@@ -57,6 +57,10 @@ Phases, each fatal on failure:
      5,760 x 768 and at an odd row count, bf16 and f32, dropout 0 and 0.1:
      out, dh, dres, dw and db (same Philox masks), dh 0 wherever B5
      dropped, and a second B6 launch on the same inputs bitwise equal;
+     then the LayerNorm kernels of every other LayerNorm site
+     (``ops/csrc/layer_norm.cu``) against their plain version at 77,568 x
+     1024 (30RS vision), 5,760 x 768, 45,248 x 1024 and 1,001 x 1024, bf16
+     and f32: y, dx, dw and db, a second backward launch bitwise equal;
  10. the pretraining path: a YTb fixture at flagship geometry (16 videos
      x 24 frames x 101 boxes) written by the port's ``build_ytb_fixture``,
      the port's ``YTbDataset`` (MLM + MVM masking, sparse targets,
@@ -194,8 +198,16 @@ Phases, each fatal on failure:
      (phase 16a) and the tools (phase 17) paths, error,
      time, bound, plain time
      and a library call's time at the train shapes (B1/B2 also at the eval
-     shapes, B5/B6 at the pretraining shape); B1-B4 also carry the bf16
-     D = 128 registers and blocks per SM, B6 those of its bf16 instance.
+     shapes, B5/B6 at the pretraining shape, the LayerNorm kernels at the
+     30RS vision site); B1-B4 also carry the bf16 D = 128 registers and
+     blocks per SM, B6 those of its bf16 instance, the LayerNorm kernels
+     their bf16 registers and the backward's resident blocks per SM.
+Every path's launch check also counts the LayerNorm kernels: one forward
+launch per LayerNorm site of each forward that B5 does not take (62 in
+the ranker, 64 in MRT less its 24 B5 sites with the epilogue knob on, the
+encoder's 60 again in ``--remat``'s recompute, 2 more in the legacy
+pretraining heads), one backward launch per site of each backward; and
+every plain path (``plain_launchers()``) runs their plain version.
 Before the kernels line, a ``phase_s`` line gives the seconds of each
 phase.  The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or without the package beside it, the script exits non-zero.
@@ -324,18 +336,51 @@ def bound_ms(flops, nbytes, peak=PEAK_BF16_FLOPS):
 
 
 def reset_counts() -> None:
-    """Zero the launch counts of every kernel (B1-B6)."""
+    """Zero the launch counts of every kernel (B1-B6 and the LayerNorm
+    kernels)."""
     from youtube_vln_tpu_torch.ops import attention as A
     from youtube_vln_tpu_torch.ops import epilogue as E
+    from youtube_vln_tpu_torch.ops import layer_norm as LN
     A.reset_launch_counts()
     E.reset_launch_counts()
+    LN.reset_launch_counts()
 
 
 def counts() -> dict:
     """The launch counts of every kernel since the last reset."""
     from youtube_vln_tpu_torch.ops import attention as A
     from youtube_vln_tpu_torch.ops import epilogue as E
-    return {**A.LAUNCHES, **E.LAUNCHES}
+    from youtube_vln_tpu_torch.ops import layer_norm as LN
+    return {**A.LAUNCHES, **E.LAUNCHES, **LN.LAUNCHES}
+
+
+LN_NAMES = ("layer_norm_fwd", "layer_norm_bwd")
+
+
+def encoder_layer_norm_sites(cfg) -> int:
+    """LayerNorm sites of the encoder blocks, which ``--remat`` recomputes
+    in the backward: two per text and vision layer, four per connection
+    layer."""
+    return (2 * cfg.num_hidden_layers + 2 * cfg.v_num_hidden_layers
+            + 4 * len(cfg.v_biattention_id))
+
+
+def layer_norm_sites(cfg) -> int:
+    """LayerNorm sites of one forward of ``Lily``: the two embeddings, the
+    encoder blocks' and one per masked-task head (62 in the ranker, 64 in
+    MRT at the flagship depth)."""
+    return (2 + encoder_layer_norm_sites(cfg) + int(cfg.masked_language)
+            + int(cfg.masked_vision))
+
+
+def check_layer_norm_launches(launches, what, fwd, bwd) -> None:
+    """Fatal unless the LayerNorm kernels launched ``fwd`` and ``bwd`` times:
+    once per forward and once per backward at every LayerNorm site that
+    B5/B6 do not take."""
+    want = {"layer_norm_fwd": fwd, "layer_norm_bwd": bwd}
+    got = {k: launches[k] for k in LN_NAMES}
+    if got != want:
+        fail(f"{what}: LayerNorm kernels launched {got}, expected {want}")
 
 
 def no_epilogue_launches(launches, what) -> None:
@@ -373,7 +418,8 @@ def ptxas_summary(log):
 def kernel_instance(mangled):
     """(kernel name, element type, head dim) of a mangled kernel symbol."""
     m = re.search(r"((?:attention_fwd|attention_bwd|delta|epilogue_fwd|epilogue_bwd|"
-                  r"column_sum)_kernel)I?(13__nv_bfloat16|f)?(?:Li(\d+)E)?", mangled)
+                  r"column_sum|layer_norm_fwd|layer_norm_bwd|layer_norm_param_sum)"
+                  r"_kernel)I?(13__nv_bfloat16|f)?(?:Li(\d+)E)?", mangled)
     if not m:
         return mangled[:60], "", None
     dtype = {"13__nv_bfloat16": "bf16", "f": "f32"}.get(m.group(2) or "", "")
@@ -385,13 +431,15 @@ def build_kernels():
     (one nvcc per source, all at once): registers, stack and spills per
     instance, fatal on any spill in a bf16 D = 128 instance of B1-B4 or in
     B6's bf16 instance; then the blocks per SM of the B1-B4 instances and
-    B6's layout (occupancy query).  Returns the bf16 numbers of B1-B4 (D =
-    128) and B6 by kernels-line name."""
+    B6's layout (occupancy query), and the LayerNorm backward's resident
+    blocks.  Returns the bf16 numbers of B1-B4 (D = 128), B6 and the
+    LayerNorm kernels by kernels-line name."""
     import ctypes
 
     import torch
     from youtube_vln_tpu_torch.ops import _build
     from youtube_vln_tpu_torch.ops import epilogue as E
+    from youtube_vln_tpu_torch.ops import layer_norm as LN
     t0 = time.perf_counter()
     logs = _build.build_all(verbose=True)
     print(f"build: {', '.join(logs)} in {time.perf_counter() - t0:.1f} s")
@@ -405,6 +453,8 @@ def build_kernels():
             if dtype == "bf16" and (d == 128 or name == "epilogue_bwd_kernel"):
                 if f.get("spill_stores") or f.get("spill_loads"):
                     fail(f"{name} <bf16, {d or 1024}> spills: {f}")
+                regs[name] = f.get("registers")
+            elif dtype == "bf16" and name.startswith("layer_norm"):
                 regs[name] = f.get("registers")
     occupancy = {}
     for source, kernel, names in (
@@ -438,6 +488,13 @@ def build_kernels():
     occupancy["epilogue_bwd"] = {"registers": regs.get("epilogue_bwd_kernel"),
                                  "smem_bytes": lay["smem_bytes"],
                                  "blocks_per_sm": lay["blocks_per_sm"], "warps_per_sm": warps}
+    # the LayerNorm backward's grid is one wave of its resident blocks
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    wave = LN._bwd_wave(True, torch.cuda.current_device())
+    print(f"  resident blocks, layer_norm_bwd_kernel <bf16>: {wave} ({wave / sms:g} per SM)")
+    occupancy["layer_norm_fwd"] = {"registers": regs.get("layer_norm_fwd_kernel")}
+    occupancy["layer_norm_bwd"] = {"registers": regs.get("layer_norm_bwd_kernel"),
+                                   "blocks_per_sm": wave // sms}
     return occupancy
 
 
@@ -637,7 +694,6 @@ def main_path(seed):
     from youtube_vln_tpu_torch import lily_base_config
     from youtube_vln_tpu_torch.evaluation.beam_eval import eval_epoch
     from youtube_vln_tpu_torch.models import Lily
-    from youtube_vln_tpu_torch.ops import attention as A
 
     cfg = lily_base_config(ranking=True, compute_dtype="bfloat16")
     t0 = time.perf_counter()
@@ -670,6 +726,7 @@ def main_path(seed):
     for name, n in per_layer.items():
         if launches[name] != n * n_run:
             fail(f"{name}: {launches[name]} launches, expected {n} x {n_run}")
+    check_layer_norm_launches(launches, "eval path", layer_norm_sites(cfg) * n_run, 0)
 
     s = np.array([row for _, row in scores])
     opt = np.concatenate([r["opt_mask"] for r in requests + [dense]])
@@ -691,8 +748,9 @@ def main_path(seed):
     def score(kernels, dtype):
         cfg.use_attention_kernels, cfg.compute_dtype = kernels, dtype
         try:
-            return np.array(eval_epoch(model, cfg, requests[:1],
-                                       device="cuda")[0][1])
+            with contextlib.nullcontext() if kernels else plain_launchers():
+                return np.array(eval_epoch(model, cfg, requests[:1],
+                                           device="cuda")[0][1])
         finally:
             cfg.use_attention_kernels, cfg.compute_dtype = True, "bfloat16"
 
@@ -887,7 +945,10 @@ def entry_path(seed, synthetic_ms, root):
                                                and np.isneginf(row[~mask]).all()):
                 fail(f"{what}: scores of {iid} not finite at real beams and -inf "
                      f"at padded ones")
+        # the LayerNorm kernels have no knob: --no_pallas (D) runs them too
         want = {k: (n * n_instr if name != "D" else 0) for k, n in per_request.items()}
+        want.update(layer_norm_fwd=layer_norm_sites(lily_base_config()) * n_instr,
+                    layer_norm_bwd=0)
         got = {k: run["launches"][k] for k in want}
         others = {k: v for k, v in run["launches"].items() if k not in want and v}
         print(f"launches, {what}: {run['launches']}")
@@ -1228,9 +1289,11 @@ def run_steps(step, batches, n, next_seed):
     return ms, torch.cuda.max_memory_allocated(), counts(), metrics
 
 
-def check_launches(cfg, launches, micro, what):
+def check_launches(cfg, launches, micro, what, layer_norms=None):
     """6 launches of each of B1-B4 per micro-step (one per vision layer and
-    one per connection layer)."""
+    one per connection layer), and of each LayerNorm kernel
+    ``layer_norms`` in all (default: ``layer_norm_sites`` per micro-step,
+    a forward and a backward at every site)."""
     print(f"launches on the {what} ({micro} micro-steps): {launches}")
     for name, per in (("attention_fwd", cfg.v_num_hidden_layers),
                       ("attention_bwd", cfg.v_num_hidden_layers),
@@ -1239,6 +1302,9 @@ def check_launches(cfg, launches, micro, what):
         if launches[name] != per * micro:
             fail(f"{what}: {name} launched {launches[name]} times, expected "
                  f"{per} x {micro}")
+    if layer_norms is None:
+        layer_norms = layer_norm_sites(cfg) * micro
+    check_layer_norm_launches(launches, what, layer_norms, layer_norms)
 
 
 def train_path(seed):
@@ -1343,7 +1409,6 @@ def path_gradient_check(model, cfg, args, batch):
     against the plain path (kernel sites on the kernels' plain versions)."""
     import torch
     from youtube_vln_tpu_torch.device import to_device
-    from youtube_vln_tpu_torch.ops import attention as A
     from youtube_vln_tpu_torch.parallel.train_step import _task_config, loss_fn
 
     batch = to_device(batch, torch.device("cuda"))
@@ -1353,21 +1418,24 @@ def path_gradient_check(model, cfg, args, batch):
 
     def grads(kernels, dtype, dropout):
         """The step's gradients; the kernel path must launch each of B1-B4
-        once per layer, the plain path none of them."""
+        once per layer and the LayerNorm kernels once per site, the plain
+        path (every kernel site on its plain version) none of them."""
         cfg.use_attention_kernels, cfg.compute_dtype = kernels, dtype
         model.train(dropout)
-        A.reset_launch_counts()
+        reset_counts()
         try:
-            loss = loss_fn(model, batch, tasks, drop_seed)[0]
-            g = torch.autograd.grad(loss, params, allow_unused=True)
+            with contextlib.nullcontext() if kernels else plain_launchers():
+                loss = loss_fn(model, batch, tasks, drop_seed)[0]
+                g = torch.autograd.grad(loss, params, allow_unused=True)
         finally:
             cfg.use_attention_kernels, cfg.compute_dtype = True, "bfloat16"
         what = (f"gradient check ({'kernel' if kernels else 'plain'} path, "
                 f"{dtype}, dropout {'on' if dropout else 'off'})")
+        launches = counts()
         if kernels:
-            check_launches(cfg, dict(A.LAUNCHES), 1, what)
-        elif any(A.LAUNCHES.values()):
-            fail(f"{what}: kernels launched: {dict(A.LAUNCHES)}")
+            check_launches(cfg, launches, 1, what)
+        elif any(launches.values()):
+            fail(f"{what}: kernels launched: {launches}")
         return [torch.zeros_like(p) if x is None else x.float()
                 for p, x in zip(params, g)]
 
@@ -1470,15 +1538,85 @@ def epilogue_kernel_checks(seed):
     return rows
 
 
+def layer_norm_kernel_checks(seed):
+    """Phase 9: the LayerNorm kernels (``ops/csrc/layer_norm.cu``) against
+    their plain version at the 30RS vision and text sites, the pretraining
+    vision sites and an odd row count, bf16 and f32, the backward launched
+    twice bitwise equal; returns the numbers of the kernels line at the
+    30RS vision site (77,568 x 1024 bf16)."""
+    import torch
+    import torch.nn.functional as F
+    from youtube_vln_tpu_torch.ops import layer_norm as LN
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 3)
+    bf16, f32 = torch.bfloat16, torch.float32
+    n_30rs = TRAIN_B * TRAIN_NC * L * BOXES         # 77,568 vision rows
+    rows = {}
+    for n, d in ((n_30rs, 1024), (TRAIN_B * TRAIN_NC * S_T, 768),
+                 (PRE_B * PRE_NC * L * BOXES, 1024), (1001, 1024)):
+        for dtype in (bf16, f32):
+            tag = f"{dtype} {n}x{d}"
+            x = (3.0 * torch.randn(n, d, generator=gen, device="cuda") + 0.5).to(dtype)
+            dy = torch.randn(n, d, generator=gen, device="cuda").to(dtype)
+            w = 1.0 + 0.1 * torch.randn(d, generator=gen, device="cuda")
+            b = 0.1 * torch.randn(d, generator=gen, device="cuda")
+            # bf16 by the TOL rule; f32 1e-4 x max |plain|
+            tol = TOL["bfloat16"] if dtype == bf16 else 1e-4
+            y, x_rows = LN._fwd(x, w, b)
+            err_f = check(f"LN layer_norm_fwd {tag}", y,
+                          LN.layer_norm_reference(x, w, b), tol)
+            got = LN._bwd(x_rows, w, dy)
+            err_b = max(check(f"LN layer_norm_bwd d{name} {tag}", g, r, tol, 0.0)
+                        for name, g, r in zip(("x", "w", "b"), got,
+                                              LN.layer_norm_bwd_reference(x, w, dy)))
+            if not all(torch.equal(a, g) for a, g in zip(LN._bwd(x_rows, w, dy), got)):
+                fail(f"LN {tag}: a second backward launch on the same inputs differs")
+            if (n, dtype) != (n_30rs, bf16):
+                continue
+            # the library's LayerNorm for comparison takes bf16 weights with a
+            # bf16 input (it refuses f32 ones), its backward as the one ATen
+            # call autograd makes
+            wl, bl = w.to(dtype), b.to(dtype)
+            _, mean, rstd = torch.ops.aten.native_layer_norm(x, (d,), wl, bl, 1e-12)
+            fwd_bound = bound_ms(8 * n * d, nbytes(x, y, w, b), PEAK_F32_FLOPS)
+            bwd_bound = bound_ms(14 * n * d, nbytes(x, dy, w, *got), PEAK_F32_FLOPS)
+            shape = f"[{n}, {d}] bf16"
+            rows["layer_norm_fwd"] = dict(
+                name="layer_norm_fwd", route="cuda",
+                source="youtube_vln_tpu_torch/ops/csrc/layer_norm.cu",
+                replaces="youtube_vln_tpu/models/layers.py:63", max_abs_err=err_f,
+                ms=cuda_ms(lambda: LN._fwd(x, w, b)),
+                plain_ms=cuda_ms(lambda: LN.layer_norm_reference(x, w, b), iters=5),
+                bound_ms=fwd_bound[0], bound_by=fwd_bound[1],
+                library_ms=cuda_ms(lambda: F.layer_norm(x, (d,), wl, bl, 1e-12)),
+                library="F.layer_norm, bf16 weights", shape=shape)
+            rows["layer_norm_bwd"] = dict(
+                name="layer_norm_bwd", route="cuda",
+                source="youtube_vln_tpu_torch/ops/csrc/layer_norm.cu",
+                replaces="youtube_vln_tpu/models/layers.py:63 (its gradient)",
+                max_abs_err=err_b,
+                ms=cuda_ms(lambda: LN._bwd(x_rows, w, dy)),
+                plain_ms=cuda_ms(lambda: LN.layer_norm_bwd_reference(x, w, dy), iters=5),
+                bound_ms=bwd_bound[0], bound_by=bwd_bound[1],
+                library_ms=cuda_ms(lambda: torch.ops.aten.native_layer_norm_backward(
+                    dy, x, (d,), mean, rstd, wl, bl, (True, True, True))),
+                library="aten native_layer_norm_backward of that F.layer_norm: dx, dw, db",
+                shape=shape)
+            del mean, rstd
+    torch.cuda.empty_cache()
+    return rows
+
+
 @contextlib.contextmanager
 def plain_launchers():
     """Every kernel site on its kernel's plain version: the launchers of
-    B1-B6 in ops/attention.py and ops/epilogue.py replaced, for CUDA
-    tensors, by the plain versions (same Philox masks).  Nothing launches,
-    so the launch counts stay 0."""
+    B1-B6 and of the LayerNorm kernels in ops/attention.py, ops/epilogue.py
+    and ops/layer_norm.py replaced, for CUDA tensors, by the plain versions
+    (same Philox masks).  Nothing launches, so the launch counts stay 0."""
     from youtube_vln_tpu_torch.entries.check_kernels import PLAIN_TWINS
     from youtube_vln_tpu_torch.ops import attention as A
     from youtube_vln_tpu_torch.ops import epilogue as E
+    from youtube_vln_tpu_torch.ops import layer_norm as LN
 
     def epilogue_fwd(h, res, weight, bias, rate, seed, row0=0):
         d = h.shape[-1]
@@ -1490,8 +1628,16 @@ def plain_launchers():
         return E.epilogue_bwd_reference(h, res, weight, do.reshape(h.shape), rate, seed,
                                         row0)
 
+    def layer_norm_fwd(x, weight, bias):
+        x = x.reshape(-1, x.shape[-1])
+        return LN.layer_norm_reference(x, weight, bias), x
+
+    def layer_norm_bwd(x, weight, dy):
+        return LN.layer_norm_bwd_reference(x, weight, dy.reshape(x.shape))
+
     patched = [(A, f"_{name}", twin) for name, twin in PLAIN_TWINS.items()]
-    patched += [(E, "_epilogue_fwd", epilogue_fwd), (E, "_epilogue_bwd", epilogue_bwd)]
+    patched += [(E, "_epilogue_fwd", epilogue_fwd), (E, "_epilogue_bwd", epilogue_bwd),
+                (LN, "_fwd", layer_norm_fwd), (LN, "_bwd", layer_norm_bwd)]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patched]
     try:
         for mod, name, fn in patched:
@@ -1506,11 +1652,13 @@ def check_pretrain_launches(cfg, launches, micro, what):
     """Per micro-step: 6 launches each of B1-B4 and, with the epilogue knob
     on, one of B5 and B6 at each vision-stream site (the self-attention and
     feed-forward outputs of every vision layer, the vision side of every
-    co-attention output and of every connection feed-forward: 24)."""
-    check_launches(cfg, launches, micro, what)
+    co-attention output and of every connection feed-forward: 24); the
+    LayerNorm kernels at every other LayerNorm site (40 with the knob on,
+    64 with it off)."""
     per = 2 * cfg.v_num_hidden_layers + 2 * len(cfg.v_biattention_id)
     if not cfg.use_epilogue_kernels:
         per = 0
+    check_launches(cfg, launches, micro, what, (layer_norm_sites(cfg) - per) * micro)
     for name in ("epilogue_fwd", "epilogue_bwd"):
         if launches[name] != per * micro:
             fail(f"{what}: {name} launched {launches[name]} times, expected "
@@ -1866,7 +2014,9 @@ def run_entry(main, argv):
 def check_entry_run(what, rec, launches, cfg, n_eval_batches, per_micro=(1, 1)):
     """Fatal: finite losses, and per micro-step ``per_micro`` x (6, 6) launches
     of B1/B2 (2 with remat: the recompute), 6 of B3/B4, plus 6 + 6 of B1/B2
-    per eval batch, none of B5/B6."""
+    per eval batch, none of B5/B6; the LayerNorm kernels once per forward
+    at every site of the entry's model (again at the encoder's sites in
+    remat's recompute) and once per backward."""
     import numpy as np
     engine = rec["engines"][0]
     micro = len(rec["steps"]) * engine.args.gradient_accumulation_steps
@@ -1880,6 +2030,11 @@ def check_entry_run(what, rec, launches, cfg, n_eval_batches, per_micro=(1, 1)):
             "attention_bwd": cfg.v_num_hidden_layers * micro,
             "bi_attention_bwd": len(cfg.v_biattention_id) * micro,
             "epilogue_fwd": 0, "epilogue_bwd": 0}
+    model_cfg = engine.cfg
+    sites = layer_norm_sites(model_cfg)
+    want["layer_norm_fwd"] = (sites * (micro + n_eval_batches) + encoder_layer_norm_sites(
+        model_cfg) * (per_micro[0] - 1) * micro)
+    want["layer_norm_bwd"] = sites * micro
     print(f"launches, {what}: {launches}")
     if launches != want:
         fail(f"{what}: launches {launches}, expected {want}")
@@ -2799,7 +2954,6 @@ def child_tp_mrt(run, spec):
     ``use_epilogue_kernels``): the launches per micro-step, and a digest of
     every B5 output, which the model ranks must share bit for bit."""
     import torch
-    from youtube_vln_tpu_torch.config import LilyConfig
     from youtube_vln_tpu_torch.entries import pretrain as pretrain_entry
     from youtube_vln_tpu_torch.ops import epilogue as E
     launch = E._epilogue_fwd
@@ -2815,7 +2969,8 @@ def child_tp_mrt(run, spec):
         _, launches, rec = run_entry(pretrain_entry.main, run["argv"])
     finally:
         E._epilogue_fwd = launch
-    cfg = LilyConfig.from_json_file(run["config_file"])
+    # the entry's model configuration: the file's, with the recipe's tasks
+    cfg = rec["engines"][0].cfg
     rank = os.environ["RANK"]
     check_pretrain_launches(cfg, launches, len(rec["steps"]), f"MRT entry, TP rank {rank}")
     out = entry_record(rec, launches)
@@ -3116,7 +3271,6 @@ def legacy_path(seed):
     from youtube_vln_tpu_torch import lily_base_config
     from youtube_vln_tpu_torch.models.legacy import (BertForMultiModalPreTraining,
                                                      VILBertForVLTasks)
-    from youtube_vln_tpu_torch.ops import attention as A
 
     cfg = lily_base_config(compute_dtype="bfloat16")
     torch.cuda.reset_peak_memory_stats()
@@ -3152,6 +3306,9 @@ def legacy_path(seed):
     if any(launches_eval[n] for n in ("attention_bwd", "bi_attention_bwd",
                                       "epilogue_fwd", "epilogue_bwd")):
         fail(f"legacy eval: a backward or epilogue kernel launched: {launches_eval}")
+    # the pretraining heads' two transforms beside each model's encoder
+    ln_pre, ln_vl = layer_norm_sites(cfg) + 2, layer_norm_sites(cfg)
+    check_layer_norm_launches(launches_eval, "legacy eval", ln_pre + ln_vl, 0)
     shapes = [(LEGACY_ROWS, S_T, cfg.vocab_size), (LEGACY_ROWS, L * BOXES, cfg.v_target_size),
               (LEGACY_ROWS, 2), (LEGACY_ROWS, VQA_LABELS)]
     for name, o, shape in zip(names, kernel, shapes):
@@ -3201,7 +3358,7 @@ def legacy_path(seed):
     torch.cuda.synchronize()
     train_ms = (time.perf_counter() - t0) * 1e3
     launches_train = counts()
-    check_launches(cfg, launches_train, 2, "legacy heads' train path")
+    check_launches(cfg, launches_train, 2, "legacy heads' train path", ln_pre + ln_vl)
     for m in (pre, vl):
         for n, prm in m.named_parameters():
             if prm.grad is not None and not bool(torch.isfinite(prm.grad).all()):
@@ -3215,7 +3372,7 @@ def legacy_path(seed):
 
         def grads(plain):
             cfg.compute_dtype = "float32"
-            A.reset_launch_counts()
+            reset_counts()
             try:
                 with plain_launchers() if plain else contextlib.nullcontext():
                     g = torch.autograd.grad(loss_of(m(*small, seed=LEGACY_SEED)), params,
@@ -3223,10 +3380,11 @@ def legacy_path(seed):
             finally:
                 cfg.compute_dtype = "bfloat16"
             what = f"legacy {tag} gradient check ({'plain' if plain else 'kernel'} path)"
-            if plain and any(A.LAUNCHES.values()):
-                fail(f"{what}: kernels launched: {dict(A.LAUNCHES)}")
+            launches = counts()
+            if plain and any(launches.values()):
+                fail(f"{what}: kernels launched: {launches}")
             if not plain:
-                check_launches(cfg, dict(A.LAUNCHES), 1, what)
+                check_launches(cfg, launches, 1, what, ln_pre if m is pre else ln_vl)
             return [torch.zeros_like(q) if x is None else x for q, x in zip(params, g)]
 
         gk, gp = grads(False), grads(True)
@@ -3774,6 +3932,7 @@ def main() -> int:
         launches_train = train_path(args.seed)
     with phase_timer("9-12 epilogue checks and pretraining path"):
         rows.update(epilogue_kernel_checks(args.seed))
+        rows.update(layer_norm_kernel_checks(args.seed))
         launches_pretrain = pretrain_path(args.seed)
     with phase_timer("13-15 training entries, ddp, tp"):
         (launches_train_entry, launches_pretrain_entry, launches_ddp,

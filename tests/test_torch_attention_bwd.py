@@ -309,7 +309,8 @@ def test_library_name_covers_shared_headers(tmp_path, monkeypatch):
     shutil.copytree(_build.CSRC, csrc)
     monkeypatch.setattr(_build, "CSRC", csrc)
     before = {name: _build.library_path(name) for name in _build.SOURCES}
-    assert set(_build.SOURCES) == {"attention_fwd", "attention_bwd", "epilogue"}
+    assert set(_build.SOURCES) == {"attention_fwd", "attention_bwd", "epilogue",
+                                  "layer_norm"}
     with open(csrc / "philox.cuh", "a") as f:
         f.write("// edited\n")
     for name in _build.SOURCES:

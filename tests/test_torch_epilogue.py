@@ -3,10 +3,13 @@
 and the autograd Function against the JAX package's Pallas kernels run in
 interpret mode on the CPU (rate 0, as tests/test_epilogue.py runs them;
 the TPU PRNG has no interpreter), the epilogue's Philox mask, the site
-rule against ``select_epilogue_fn``, and the model's routing.
+rule against ``select_epilogue_fn``, and the model's routing.  Then the
+LayerNorm of every other site (ops/layer_norm.py): its Function against
+the eager formula and the JAX ``layer_norm``, the XLA-path dropout draw
+before it, and the launches of both kernels' branches in a train step.
 
-The CUDA kernels are held to the same plain version on the card by
-chip_smoke.py, with the same masks.
+The CUDA kernels are held to the same plain versions on the card by
+chip_smoke.py, with the same masks, and by tests/test_torch_layer_norm_card.py.
 """
 import ctypes
 import math
@@ -20,10 +23,15 @@ import torch
 from youtube_vln_tpu.config import tiny_config as jax_tiny_config
 from youtube_vln_tpu.models import layers as jax_layers
 from youtube_vln_tpu.ops import epilogue as jax_epilogue
+from benchmark import counts
+from benchmark.reference import lily as ref_lily
 from youtube_vln_tpu_torch.config import tiny_config
 from youtube_vln_tpu_torch.models import Lily
-from youtube_vln_tpu_torch.models.layers import LayerNorm
+from youtube_vln_tpu_torch.models.layers import (DropoutRng, LayerNorm,
+                                                 dropout_add_ln)
+from youtube_vln_tpu_torch.ops import _build
 from youtube_vln_tpu_torch.ops import epilogue as E
+from youtube_vln_tpu_torch.ops import layer_norm as LN
 from youtube_vln_tpu_torch.ops import philox
 
 RATE = 0.1
@@ -330,7 +338,7 @@ def test_bwd_layout_reads_the_c_query_in_field_order(monkeypatch):
     import contextlib
     import re
 
-    source = (E._build.CSRC / "epilogue.cu").read_text()
+    source = (_build.CSRC / "epilogue.cu").read_text()
     c_order = re.search(r"const int layout\[\] = \{(.*?)\};", source, re.S).group(1)
     assert [x.strip() for x in c_order.split(",")][:3] == [
         "B6_ROWS", "B6_THREADS", "blocks"]
@@ -352,3 +360,209 @@ def test_bwd_layout_reads_the_c_query_in_field_order(monkeypatch):
             E._bwd_layout(False, 0)
     finally:
         E._bwd_layout.cache_clear()
+
+
+# --------------------------------------------------------------------------- #
+# the LayerNorm of every site that B5/B6 do not take (ops/layer_norm.py)
+# --------------------------------------------------------------------------- #
+def _eager_layer_norm(x, w, b):
+    """The port's LayerNorm before it had a kernel, op for op (the JAX
+    ``layer_norm``)."""
+    x32 = x.float()
+    u = x32.mean(-1, keepdim=True)
+    s = (x32 - u).square().mean(-1, keepdim=True)
+    return (w * ((x32 - u) * torch.rsqrt(s + 1e-12)) + b).to(x.dtype)
+
+
+def _bf16_ulp(t):
+    """The spacing of bf16 numbers at |t| (8 significant bits)."""
+    return torch.exp2(torch.floor(torch.log2(t.abs().float().clamp_min(2.0 ** -120))) - 7)
+
+
+def _ln_inputs(seed, d, dtype):
+    rng = np.random.default_rng(seed)
+    x = (3.0 * rng.normal(size=(2, 37, d)) + 0.5).astype(np.float32)
+    dy = rng.normal(size=(2, 37, d)).astype(np.float32)
+    w = (1.0 + 0.1 * rng.normal(size=d)).astype(np.float32)
+    b = (0.1 * rng.normal(size=d)).astype(np.float32)
+    tdt = getattr(torch, dtype)
+    # bf16 operands rounded once, then both sides read the same values
+    x, dy = (torch.from_numpy(a).to(tdt) for a in (x, dy))
+    return x, dy, torch.from_numpy(w), torch.from_numpy(b)
+
+
+def _want(against, x, dy, w, b):
+    """(y, dx, dw, db) of the eager formula (torch autograd) or of the JAX
+    ``layer_norm`` (jax.vjp), on the same values."""
+    if against == "eager":
+        leaves = [x.clone().requires_grad_(), w.clone().requires_grad_(),
+                  b.clone().requires_grad_()]
+        y = _eager_layer_norm(*leaves)
+        return (y.detach(), *torch.autograd.grad(y, leaves, dy))
+    jdt = jnp.bfloat16 if x.dtype == torch.bfloat16 else jnp.float32
+
+    def j(t):
+        return jnp.asarray(t.float().numpy(), jdt if t.dim() == 3 else jnp.float32)
+
+    y, vjp = jax.vjp(lambda x, w, b: jax_layers.layer_norm(x, {"w": w, "b": b}),
+                     j(x), j(w), j(b))
+    grads = vjp(j(dy))
+    return tuple(torch.from_numpy(np.array(t, np.float32)) for t in (y, *grads))
+
+
+@pytest.mark.parametrize("against", ["eager", "jax"])
+@pytest.mark.parametrize("d", [768, 1024])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_layer_norm_matches_the_eager_formula_and_jax(dtype, d, against):
+    """``layer_norm`` under autograd (``LayerNormFn``: the plain forward and
+    the closed-form backward the kernel computes) against the eager formula
+    and the JAX ``layer_norm``: y and dx in x's dtype, dw and db in f32."""
+    x, dy, w, b = _ln_inputs(d, d, dtype)
+    leaves = [x.clone().requires_grad_(), w.clone().requires_grad_(),
+              b.clone().requires_grad_()]
+    y = LN.layer_norm(*leaves)
+    got = (y.detach(), *torch.autograd.grad(y, leaves, dy))
+    want = _want(against, x, dy, w, b)
+    assert [t.dtype for t in got] == [x.dtype, x.dtype, torch.float32, torch.float32]
+    if against == "eager":
+        # the CPU runs the formula itself
+        assert torch.equal(got[0], want[0])
+    for name, g, r in zip(("y", "dx", "dw", "db"), got, want):
+        g, r = g.float(), r.float()
+        scale = float(r.abs().max())
+        # f32: the two sides differ by the order of their f32 sums, a few
+        # ulps of the largest value (ROADMAP D1 asks 1e-4; 1e-5 holds)
+        tol = torch.full_like(r, 1e-5 * scale)
+        if dtype == "bfloat16" and name in ("y", "dx"):
+            # one bf16 ulp: the same f32 value to a few ulps rounds to
+            # neighbouring bf16 numbers at most, beside that f32 floor
+            # where dx cancels to near 0
+            tol = torch.maximum(_bf16_ulp(r), tol)
+        assert bool(((g - r).abs() <= tol).all()), (name, float((g - r).abs().max()))
+
+
+def test_layer_norm_struct_mirrors_the_c_layout():
+    """struct LayerNormCall in csrc/layer_norm.cu: 10 pointers, then 3 ints,
+    padded to the pointers' alignment."""
+    assert LN._LayerNormCall.n_rows.offset == 10 * 8
+    assert LN._LayerNormCall.n_blocks.offset == 10 * 8 + 8
+    assert ctypes.sizeof(LN._LayerNormCall) == 10 * 8 + 16
+
+
+@pytest.mark.parametrize("n_rows,want", [
+    (16 * 6 * 808, 132),   # 30RS vision sites: one wave of 132 blocks
+    (1001, 126),           # fewer rows than a wave holds: ceil(1001 / 8)
+    (1056, 132),           # exactly one wave of 8-row blocks
+    (1, 1)])
+def test_layer_norm_bwd_grid_is_one_wave(n_rows, want):
+    assert LN._bwd_blocks(n_rows, wave=132) == want
+
+
+def test_layer_norm_bwd_grid_refuses_a_kernel_that_fits_no_block():
+    with pytest.raises(RuntimeError, match="fits no block"):
+        LN._bwd_blocks(5760, wave=0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ranker_site_draws_the_xla_path_mask(monkeypatch, dtype):
+    """A dropout + add + LayerNorm site of the ranker (``use_epilogue_kernels``
+    off, a vision-width site that B5 would take with it on) draws the uint8
+    mask of the JAX ``dropout`` from the forward's generator, as the port
+    did before the LayerNorm had a kernel: the same draws in the same order,
+    so the output and the generator's state after the call are bitwise
+    those of the eager code, and no kernel seed is taken."""
+    monkeypatch.setattr(E, "MIN_FUSED_ELEMENTS", 0)
+    cfg = tiny_config(**WIDE, ranking=True, use_epilogue_kernels=False)
+    tdt = getattr(torch, dtype)
+    h, res, w, b = (torch.from_numpy(a) for a in _inputs(5, (4, 101, 128)))
+    h, res = h.to(tdt), res.to(tdt)
+    ln = LayerNorm(128)
+    with torch.no_grad():
+        ln.weight.copy_(w)
+        ln.bias.copy_(b)
+    rng, twin = DropoutRng(1234, "cpu"), DropoutRng(1234, "cpu")
+    rate = cfg.v_hidden_dropout_prob
+    out = dropout_add_ln(h, res, ln, rate, rng, cfg)
+    thresh = round((1.0 - rate) * 256)
+    bits = torch.randint(0, 256, h.shape, dtype=torch.uint8, generator=twin.generator)
+    dropped = torch.where(bits < thresh, h * (256.0 / thresh), 0.0).to(tdt)
+    assert torch.equal(out, _eager_layer_norm(dropped + res, w, b))
+    assert torch.equal(rng.generator.get_state(), twin.generator.get_state())
+    assert rng.sites == 0
+
+
+def _counting_launchers(monkeypatch):
+    """The launch branches of the epilogue and LayerNorm Functions forced on
+    the CPU, each launcher its plain version that counts as the kernel's
+    does."""
+    def epi_fwd(h, res, w, b, rate, seed, row0=0):
+        E.LAUNCHES["epilogue_fwd"] += 1
+        d = h.shape[-1]
+        h, res = h.reshape(-1, d), res.reshape(-1, d)
+        return E.epilogue_reference(h, res, w, b, rate, seed, row0), (h, res, w)
+
+    def epi_bwd(h, res, w, do, rate, seed, row0=0):
+        E.LAUNCHES["epilogue_bwd"] += 1
+        return E.epilogue_bwd_reference(h, res, w, do.reshape(h.shape), rate,
+                                        seed, row0)
+
+    def ln_fwd(x, w, b):
+        LN.LAUNCHES["layer_norm_fwd"] += 1
+        x = x.reshape(-1, x.shape[-1])
+        return LN.layer_norm_reference(x, w, b), x
+
+    def ln_bwd(x, w, dy):
+        LN.LAUNCHES["layer_norm_bwd"] += 1
+        return LN.layer_norm_bwd_reference(x, w, dy.reshape(x.shape))
+
+    for module, name, fn in ((E, "_epilogue_fwd", epi_fwd), (E, "_epilogue_bwd", epi_bwd),
+                             (LN, "_fwd", ln_fwd), (LN, "_bwd", ln_bwd)):
+        monkeypatch.setattr(module, name, fn)
+    monkeypatch.setattr(E, "_on_cpu", lambda *t: False)
+    monkeypatch.setattr(LN, "_on_cpu", lambda *t: False)
+
+
+@pytest.mark.parametrize("knob", [False, True])
+def test_train_step_launches_at_every_layer_norm_site(monkeypatch, knob):
+    """A train forward and backward with both Functions on their launch
+    branches: B5/B6 launch at the sites ``counts.epilogue_sites`` gives
+    (none with the knob off, as in the ranker), the LayerNorm kernels at
+    every other LayerNorm site, once forward and once backward each; the
+    gradients are those of the CPU branches."""
+    monkeypatch.setattr(E, "MIN_FUSED_ELEMENTS", 0)
+    monkeypatch.setattr(ref_lily, "MIN_FUSED_ELEMENTS", 0)
+    cfg = tiny_config(**WIDE, ranking=True, compute_dtype="float32",
+                      use_epilogue_kernels=knob)
+    n, s_t, s_v = 3, 12, 20
+    runs = []
+    for forced in (False, True):
+        with monkeypatch.context() as m:
+            if forced:
+                _counting_launchers(m)
+            E.reset_launch_counts()
+            LN.reset_launch_counts()
+            model = Lily(cfg, device="cpu").init_weights(1).train()
+            rng = np.random.default_rng(0)
+            tokens = torch.from_numpy(rng.integers(1, cfg.vocab_size, (n, s_t)))
+            feats = torch.from_numpy(rng.normal(size=(n, s_v, cfg.v_feature_size))
+                                     .astype(np.float32))
+            locs = torch.from_numpy(rng.random((n, s_v, 12)).astype(np.float32))
+            out = model(tokens, feats, locs, seed=11)["ranking"]
+            out.float().square().sum().backward()
+            runs.append(({k: p.grad.clone() for k, p in model.named_parameters()
+                          if p.grad is not None}, dict(E.LAUNCHES), dict(LN.LAUNCHES)))
+    (plain, *_), (forced, epi, ln) = runs
+    sites = counts.epilogue_sites(
+        {"use_epilogue_kernels": knob, "use_attention_kernels": True,
+         "hidden_size": cfg.hidden_size, "v_hidden_size": cfg.v_hidden_size,
+         "v_num_hidden_layers": cfg.v_num_hidden_layers,
+         "v_biattention_id": cfg.v_biattention_id}, n, s_t, s_v)
+    assert sites == (8 if knob else 0)
+    assert epi == {"epilogue_fwd": sites, "epilogue_bwd": sites}
+    # embeddings, two per text and vision layer, four per connection layer
+    ln_sites = (2 + 2 * cfg.num_hidden_layers + 2 * cfg.v_num_hidden_layers
+                + 4 * len(cfg.v_biattention_id))
+    assert ln == {"layer_norm_fwd": ln_sites - sites, "layer_norm_bwd": ln_sites - sites}
+    assert plain.keys() == forced.keys()
+    for k in plain:
+        assert torch.equal(plain[k], forced[k]), k

@@ -60,11 +60,10 @@ from torch import nn
 from ..ops import epilogue
 from ..ops.attention import (attention_reference, attention_scores,
                              fused_attention, use_kernel_for)
+from ..ops.layer_norm import layer_norm
 from ..ops.philox import MASK64, site_seed
 from ..parallel.tensor import (HeadCover, ModelShard, copy_to_model,
                                reduce_from_model)
-
-LN_EPS = 1e-12
 
 
 def gelu(x):
@@ -138,7 +137,8 @@ def dropout_add_ln(h, res, ln: "LayerNorm", rate: float, rng, cfg):
     knobs on, train mode, a rate above 0, at least ``MIN_FUSED_ELEMENTS``
     elements and a last dim that is a multiple of 128; such a site takes
     the next kernel seed.  Every other site is ``dropout`` then
-    ``LayerNorm``."""
+    ``LayerNorm``: the XLA-path uint8 draw from ``rng.generator`` as it is
+    anywhere else, then the LayerNorm kernel (``ops/layer_norm.py``)."""
     if (rng is not None and cfg.use_attention_kernels
             and cfg.use_epilogue_kernels
             and epilogue.use_epilogue_kernel_for(h.numel(), h.shape[-1], rate,
@@ -204,7 +204,10 @@ class RowLinear(Linear):
 
 
 class LayerNorm(nn.Module):
-    """TF-style LayerNorm in float32 whatever the input dtype."""
+    """TF-style LayerNorm in float32 whatever the input dtype: one path for
+    every caller, ``ops/layer_norm.py:layer_norm`` (the kernels of
+    ``ops/csrc/layer_norm.cu`` forward and backward on the card, the plain
+    version on the CPU)."""
 
     def __init__(self, d: int, device=None):
         super().__init__()
@@ -212,11 +215,7 @@ class LayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(d, device=device))
 
     def forward(self, x):
-        x32 = x.float()
-        u = x32.mean(-1, keepdim=True)
-        s = (x32 - u).square().mean(-1, keepdim=True)
-        y = (x32 - u) * torch.rsqrt(s + LN_EPS)
-        return (self.weight * y + self.bias).to(x.dtype)
+        return layer_norm(x, self.weight, self.bias)
 
 
 def split_heads(x, num_heads: int):

@@ -79,6 +79,7 @@
 
 #include "mma.cuh"
 #include "philox.cuh"
+#include "rows.cuh"
 
 // One epilogue call (outside the unnamed namespace: the exported C entry
 // points take it).  Rows are contiguous [N, D]; mirrored by
@@ -102,45 +103,7 @@ struct Epilogue {
 
 namespace {
 
-constexpr int WARPS = 8;              // one row per warp
-constexpr int THREADS = WARPS * 32;
-constexpr int MAX_D = 1024;
-constexpr float LN_EPS = 1e-12f;
-
-template <typename T>
-struct Traits {
-  static constexpr int VEC = 16 / sizeof(T);            // values per 16 B
-  static constexpr int NCH = MAX_D / (VEC * 32);        // 16 B chunks per lane
-  static constexpr int N = NCH * VEC;                   // values per lane
-};
-
-__device__ __forceinline__ void load_vec(const float* p, float* f) {
-  const float4 u = *reinterpret_cast<const float4*>(p);
-  f[0] = u.x; f[1] = u.y; f[2] = u.z; f[3] = u.w;
-}
-
-__device__ __forceinline__ void load_vec(const __nv_bfloat16* p, float* f) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 t = __bfloat1622float2(h2[i]);
-    f[2 * i] = t.x;
-    f[2 * i + 1] = t.y;
-  }
-}
-
-__device__ __forceinline__ void store_vec(float* p, const float* f) {
-  *reinterpret_cast<float4*>(p) = make_float4(f[0], f[1], f[2], f[3]);
-}
-
-__device__ __forceinline__ void store_vec(__nv_bfloat16* p, const float* f) {
-  uint4 u;
-  __nv_bfloat162* h2 = reinterpret_cast<__nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) h2[i] = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
-  *reinterpret_cast<uint4*>(p) = u;
-}
+using namespace vln_rows;
 
 // x rounded to T and back
 template <typename T>
@@ -149,12 +112,6 @@ __device__ __forceinline__ float round_t(float x) {
     return __bfloat162float(__float2bfloat16_rn(x));
   else
     return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
 }
 
 // The keep bits of 16 B chunk ``chunk`` (VEC values) of row ``row``, bit i
@@ -231,13 +188,6 @@ __device__ __forceinline__ float2 row_input(const Epilogue& p, int row, int lane
   }
   const float var = warp_sum(sq) / (float)p.d;
   return make_float2(mean, 1.0f / sqrtf(var + LN_EPS));
-}
-
-// w[col .. col + VEC) into f (f32, 16-byte loads)
-template <int VEC>
-__device__ __forceinline__ void load_param(const float* w, int col, float* f) {
-#pragma unroll
-  for (int i = 0; i < VEC; i += 4) load_vec(w + col + i, f + i);
 }
 
 template <typename T>
@@ -483,30 +433,9 @@ __global__ void __launch_bounds__(B6_THREADS, B6_MIN_BLOCKS)
   }
 }
 
-// out[col] = sum over r of part[r, col], r in a fixed order: 32 columns
-// per block; row group g sums rows g, g + CS_GROUPS, ..., and the groups
-// are summed in order through shared memory.  blockIdx.y picks dw (0) or
-// db (1).
-constexpr int CS_GROUPS = 32;
-
-__global__ void __launch_bounds__(32 * CS_GROUPS) column_sum_kernel(Epilogue p) {
-  __shared__ float s[CS_GROUPS][33];
-  const int tx = threadIdx.x % 32, grp = threadIdx.x / 32;
-  const int col = blockIdx.x * 32 + tx;
-  const float* part = blockIdx.y == 0 ? p.dw_part : p.db_part;
-  float acc = 0.f;
-  if (col < p.d) {
-#pragma unroll 4
-    for (int r = grp; r < p.n_blocks; r += CS_GROUPS) acc += part[(long long)r * p.d + col];
-  }
-  s[grp][tx] = acc;
-  __syncthreads();
-  if (grp == 0 && col < p.d) {
-    float total = 0.f;
-#pragma unroll
-    for (int g = 0; g < CS_GROUPS; ++g) total += s[g][tx];
-    (blockIdx.y == 0 ? p.dw : p.db)[col] = total;
-  }
+// dw and db from B6's partials (rows.cuh column_sum)
+__global__ void __launch_bounds__(CS_THREADS) column_sum_kernel(Epilogue p) {
+  column_sum(p.dw_part, p.db_part, p.dw, p.db, p.n_blocks, p.d);
 }
 
 bool valid(const Epilogue& p) {
@@ -579,7 +508,7 @@ extern "C" int vln_epilogue_bwd(const Epilogue* p, int is_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = is_bf16 ? launch_bwd<__nv_bfloat16>(*p, s) : launch_bwd<float>(*p, s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  column_sum_kernel<<<dim3((p->d + 31) / 32, 2), 32 * CS_GROUPS, 0, s>>>(*p);
+  column_sum_kernel<<<column_sum_grid(p->d), CS_THREADS, 0, s>>>(*p);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -31,15 +31,16 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import math
 
 import torch
 
-from . import _build
+from . import _rowwise
+from ._rowwise import param as _param
+from ._rowwise import rows as _rows
 from .attention import _Dropout, _dropout, _on_cpu, _records_grad
+from .layer_norm import layer_norm_grads, layer_norm_reference, normalise
 from .philox import EPILOGUE_DIRECTION, epilogue_keep
 
-LN_EPS = 1e-12
 # only where the mask traffic matters (the JAX package's threshold); tests
 # may lower it to reach the kernel sites at small shapes
 MIN_FUSED_ELEMENTS = 1 << 22
@@ -92,23 +93,14 @@ def _dropped(h, rate: float, seed: int, row0: int):
                        0.0).to(h.dtype)
 
 
-def _normalised(h, res, rate, seed, row0):
-    """(yhat, rstd) of LayerNorm(dropout(h) + res) in f32."""
-    y = (_dropped(h, rate, seed, row0) + res).float()
-    u = y.mean(-1, keepdim=True)
-    s = (y - u).square().mean(-1, keepdim=True)
-    rstd = torch.rsqrt(s + LN_EPS)
-    return (y - u) * rstd, rstd
-
-
 def epilogue_reference(h, res, weight, bias, dropout_rate: float = 0.0,
                        seed: int = 0, row0: int = 0):
     """LayerNorm(dropout(h) + res) with ``weight``/``bias`` (f32, [D]),
-    in h's dtype; at rate 0 it is ``models/layers.py:LayerNorm`` of h + res,
-    op for op."""
+    in h's dtype; at rate 0 it is ``ops/layer_norm.py:layer_norm_reference``
+    of h + res, op for op."""
     _check_pair(h, res)
-    yhat, _ = _normalised(h, res, dropout_rate, seed, row0)
-    return (weight * yhat + bias).to(h.dtype)
+    return layer_norm_reference(_dropped(h, dropout_rate, seed, row0) + res,
+                                weight, bias)
 
 
 def epilogue_bwd_reference(h, res, weight, do, dropout_rate: float = 0.0,
@@ -117,22 +109,15 @@ def epilogue_bwd_reference(h, res, weight, do, dropout_rate: float = 0.0,
     ``do``, as the TPU kernel computes them (``_epi_bwd_kernel``): recompute
     yhat and rstd, dy = rstd (dyhat - mean(dyhat) - yhat mean(dyhat yhat))
     with dyhat = do w, dres = dy, dh = dy with the mask replayed, dw = sum
-    do yhat and db = sum do over the rows, in f32."""
+    do yhat and db = sum do over the rows, in f32 (``layer_norm_grads``)."""
     _check_pair(h, res)
-    d = h.shape[-1]
-    yhat, rstd = _normalised(h, res, dropout_rate, seed, row0)
-    do32 = do.float()
-    dyhat = do32 * weight
-    m1 = dyhat.mean(-1, keepdim=True)
-    m2 = (dyhat * yhat).mean(-1, keepdim=True)
-    dy = rstd * (dyhat - m1 - yhat * m2)
+    yhat, rstd = normalise(_dropped(h, dropout_rate, seed, row0) + res)
+    dy, dw, db = layer_norm_grads(yhat, rstd, weight, do)
     dh = dy
     if dropout_rate > 0.0:
         dh = torch.where(_keep(h, dropout_rate, seed, row0),
                          dy * _keep_scale(dropout_rate), 0.0)
-    return (dh.to(h.dtype), dy.to(res.dtype),
-            (do32 * yhat).reshape(-1, d).sum(0).to(weight.dtype),
-            do32.reshape(-1, d).sum(0).to(weight.dtype))
+    return dh.to(h.dtype), dy.to(res.dtype), dw, db
 
 
 # --------------------------------------------------------------------------- #
@@ -147,27 +132,10 @@ class _Epilogue(ctypes.Structure):
                 + [("dropout", _Dropout)])
 
 
-_kernels = {}
-
-
-def _kernel(name: str, argtypes=(ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p)):
+def _kernel(name: str, argtypes=_rowwise.ARGTYPES):
     """The C entry ``vln_<name>`` of ``csrc/epilogue.cu``, built on first
     use."""
-    fn = _kernels.get(name)
-    if fn is None:
-        fn = getattr(_build.load("epilogue"), f"vln_{name}")
-        fn.argtypes = list(argtypes)
-        fn.restype = ctypes.c_int
-        _kernels[name] = fn
-    return fn
-
-
-def _rows(x: torch.Tensor, d: int) -> torch.Tensor:
-    """x as the kernels read it: contiguous [N, d] on a 16-byte boundary."""
-    x = x.reshape(-1, d)
-    if not x.is_contiguous() or x.data_ptr() % 16:
-        x = x.clone(memory_format=torch.contiguous_format)
-    return x
+    return _rowwise.entry("epilogue", name, argtypes)
 
 
 def _check_kernel_operands(h, res, weight, *params):
@@ -185,19 +153,6 @@ def _check_kernel_operands(h, res, weight, *params):
                              f"got {tuple(p.shape)} {p.dtype}")
 
 
-def _launch(name: str, problem: _Epilogue, h: torch.Tensor) -> None:
-    with torch.cuda.device(h.device):
-        stream = torch.cuda.current_stream(h.device).cuda_stream
-        err = _kernel(name)(ctypes.byref(problem),
-                            int(h.dtype == torch.bfloat16), stream)
-    if err != 0:
-        raise RuntimeError(f"vln_{name} failed with CUDA error {err}")
-
-
-def _param(p: torch.Tensor) -> torch.Tensor:
-    return _rows(p, p.shape[0])[0]
-
-
 def _epilogue_fwd(h, res, weight, bias, rate, seed, row0=0):
     """B5 on CUDA operands: (out [N, D], the operands as read)."""
     _check_kernel_operands(h, res, weight, bias)
@@ -207,7 +162,7 @@ def _epilogue_fwd(h, res, weight, bias, rate, seed, row0=0):
     problem = _Epilogue(h=h.data_ptr(), res=res.data_ptr(), w=weight.data_ptr(),
                         b=bias.data_ptr(), out=out.data_ptr(), n_rows=h.shape[0],
                         d=d, dropout=_dropout(rate, seed, EPILOGUE_DIRECTION, row0))
-    _launch("epilogue_fwd", problem, h)
+    _rowwise.launch("epilogue", "epilogue_fwd", problem, h)
     LAUNCHES["epilogue_fwd"] += 1
     return out, (h, res, weight)
 
@@ -232,9 +187,8 @@ def _bwd_blocks(n_rows: int, rows_per_block: int, blocks_per_sm: int,
     """B6's grid: one wave of the blocks that fit on the card at once
     (``blocks_per_sm`` from the occupancy query, on every SM), or fewer when
     the rows need fewer; every block then walks its rows in a loop."""
-    if blocks_per_sm < 1:
-        raise RuntimeError("the epilogue backward kernel fits no block on an SM")
-    return max(1, min(math.ceil(n_rows / rows_per_block), blocks_per_sm * sms))
+    return _rowwise.one_wave(n_rows, rows_per_block, blocks_per_sm * sms,
+                             "epilogue backward kernel")
 
 
 def _epilogue_bwd(h, res, weight, do, rate, seed, row0=0):
@@ -254,7 +208,7 @@ def _epilogue_bwd(h, res, weight, do, rate, seed, row0=0):
                         dw=dw_db[0].data_ptr(), db=dw_db[1].data_ptr(),
                         n_rows=n, d=d, n_blocks=n_blocks,
                         dropout=_dropout(rate, seed, EPILOGUE_DIRECTION, row0))
-    _launch("epilogue_bwd", problem, h)
+    _rowwise.launch("epilogue", "epilogue_bwd", problem, h)
     LAUNCHES["epilogue_bwd"] += 1
     return dh, dres, dw_db[0], dw_db[1]
 
