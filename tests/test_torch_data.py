@@ -327,3 +327,191 @@ def test_loader_stopped_mid_epoch_closes_its_slabs():
         sys.unraisablehook = hook
     assert not unraisable, [u.exc_value for u in unraisable]
     np.testing.assert_array_equal(first["image_features"][:, 0, 0, 0], np.arange(4))
+
+
+# --------------------------------------------------------------------------- #
+# batches written in place by the workers, against collate()
+# --------------------------------------------------------------------------- #
+def _collate_twins(loader):
+    """``collate`` of the Loader's items, each drawn as a worker draws it."""
+    ds, order, bs = loader.dataset, loader._order(), loader.batch_size
+    out = []
+    for j in range(0, len(order), bs):
+        items = []
+        for i in order[j:j + bs]:
+            if hasattr(ds, "reseed"):
+                ds.reseed(ploader._item_seed(loader.seed, loader.epoch, int(i)))
+            items.append(ds[int(i)])
+        out.append(ploader.collate(items, loader.nc, loader.with_instr_id,
+                                   loader.nc_uniq))
+    return out
+
+
+def _assert_bitwise(got, want, what):
+    assert list(got) == list(want), what
+    for k in want:
+        g, w = got[k], want[k]
+        assert (g.dtype, g.shape) == (w.dtype, w.shape), (what, k)
+        assert g.tobytes() == w.tobytes(), (what, k)
+
+
+@pytest.fixture(scope="module")
+def r2r(tmp_path_factory):
+    return pfix.build_r2r_fixture(tmp_path_factory.mktemp("r2r_port"),
+                                  n_viewpoints=9, n_beams=6, path_len=5, seed=2)
+
+
+def _beam_dataset(paths, *, training, dedup_beam_steps=False):
+    args = RunConfig(pretrain=False, ranking=True, batch_size=1,
+                     max_instruction_length=32, max_path_length=4,
+                     max_num_boxes=5, num_negatives=2, num_beams=4,
+                     num_beams_train=4, dedup_beam_steps=dedup_beam_steps,
+                     io_dtype="float16")
+    reader = pfr.PanoFeaturesReader(paths["store_path"])
+    root, split = paths["data_dir"], "train" if training else "val_unseen"
+    ds = pds.BeamDataset(
+        args, f"{root}/task/R2R_{split}.json",
+        f"{root}/beamsearch/beams_{split}.json",
+        ptok.load_tokenizer(paths["vocab_path"]), reader, num_beams=4,
+        num_beams_strict=False, training=training, masked_vision=False,
+        masked_language=False, shuffle_visual_features=training,
+        data_dir=root, seed=0)
+    return ds, reader
+
+
+@pytest.mark.parametrize("drop_last, with_instr_id", [(True, False), (False, True)],
+                         ids=["full", "partial_with_instr_id"])
+@pytest.mark.parametrize("layout", ["beam_dense", "ytb_dedup"])
+def test_in_place_batches_equal_collate(fixtures, r2r, layout, drop_last,
+                                        with_instr_id):
+    """Batches of 2 workers written in place equal ``collate`` of the same
+    items bit for bit, for the dense 30RS layout and the candidate-dedup
+    one (``uniq_*`` padded to ``num_unique_candidates``), a partial last
+    batch and ``instr_id`` included."""
+    if layout == "beam_dense":
+        ds, reader = _beam_dataset(r2r, training=True)
+    else:
+        ds, reader = _dataset(PORT, "ytb", fixtures["port", "ytb"], True,
+                              **TRANSPORTS["dedup"], traj_judge=True)
+    # 15 beam items, 6 YTb items: at least two batches, one partial
+    bs = 2 if (layout, drop_last) == ("ytb_dedup", True) else 4
+    try:
+        loader = ploader.Loader(ds, bs, shuffle=True, seed=7, num_workers=2,
+                                drop_last=drop_last, with_instr_id=with_instr_id)
+        assert (loader.nc_uniq is not None) == (layout == "ytb_dedup")
+        loader.set_epoch(1)
+        got = list(loader)
+        want = _collate_twins(loader)
+    finally:
+        reader.close()
+    assert len(got) == len(want) > 1
+    assert drop_last or len(ds) % bs, "the partial batch is not exercised"
+    if not drop_last:
+        assert got[-1]["opt_mask"].shape[0] == len(ds) % bs
+    for i, (g, w) in enumerate(zip(got, want)):
+        _assert_bitwise(g, w, i)
+    assert loader.batch_assembly == {"in_place": len(got), "collated": 0}
+    assert loader.shm_fallbacks == 0, loader.shm_fallbacks_by_reason
+
+
+class _Rows(_Items):
+    """``_Items`` with up to 3 candidates an item, so rows are padded."""
+
+    def num_candidates(self):
+        return 3
+
+    def __getitem__(self, i):
+        cur = 1 + i % 3
+        return {"opt_mask": np.ones(cur, bool),
+                "image_features": np.full((cur, 4, 8), i, np.float16),
+                "ranking_target": np.asarray(i, np.int32)}
+
+
+@pytest.mark.parametrize("held", [True, False], ids=["held", "dropped"])
+def test_in_place_batches_stay_intact_while_viewed(held):
+    """Twelve batches: held all at once, each has a slab of its own and
+    stays equal to its collate twin; dropped as they come, slabs are reused
+    (fewer than the batches) and each batch is whole when it is taken."""
+    loader = ploader.Loader(_Rows(), 4, shuffle=False, drop_last=True,
+                            num_workers=2)
+    want = _collate_twins(loader)
+    got, made = [], 0
+    for batch in loader:
+        made = len(ploader._WORKER_SLABS)
+        if held:
+            got.append(batch)
+        else:
+            _assert_bitwise(batch, want[len(got)], len(got))
+            got.append(None)
+        del batch
+    assert len(got) == len(want) == 12
+    if held:
+        assert made == 12
+        for i, (g, w) in enumerate(zip(got, want)):
+            _assert_bitwise(g, w, i)
+            assert not any(np.shares_memory(g["image_features"], o["image_features"])
+                           for o in got[:i])
+    else:
+        assert made < 12
+    assert loader.batch_assembly == {"in_place": 12, "collated": 0}
+
+
+def test_step_dedup_items_are_collated(r2r):
+    """Step-dedup eval items bucket-pad their own ``uniq_step_*`` blocks
+    and give no ``num_unique_candidates``: a dynamic layout, collated from
+    item slabs, equal to ``collate``."""
+    ds, reader = _beam_dataset(r2r, training=False, dedup_beam_steps=True)
+    try:
+        loader = ploader.Loader(ds, 3, shuffle=False, drop_last=False,
+                                num_candidates=ds.max_beam_count(),
+                                with_instr_id=True, num_workers=2)
+        assert loader.nc_uniq is None
+        got = list(loader)
+        want = _collate_twins(loader)
+    finally:
+        reader.close()
+    assert "uniq_step_features" in got[0]
+    assert len(got) == len(want) == 5
+    for i, (g, w) in enumerate(zip(got, want)):
+        _assert_bitwise(g, w, i)
+    assert loader.batch_assembly == {"in_place": 0, "collated": 5}
+    assert loader.shm_fallbacks == 0, loader.shm_fallbacks_by_reason
+
+
+class _Misfit(_Rows):
+    """``_Rows`` where item 6 does not fit the probes' layout."""
+
+    def __init__(self, kind):
+        self.kind = kind
+
+    def __getitem__(self, i):
+        item = super().__getitem__(i)
+        if i == 6 and self.kind == "dtype":
+            item["image_features"] = item["image_features"].astype(np.float32)
+        elif i == 6:
+            item["segment_ids"] = np.ones((1 + i % 3, 2), np.int32)
+        return item
+
+
+@pytest.mark.parametrize("kind", ["dtype", "key_set"])
+def test_an_item_off_the_layout_is_counted_and_written(kind):
+    """An item unlike the probes (another dtype, or another set of batch
+    keys) travels pickled, is counted under ``layout_misfit`` and written
+    into its row by the parent: its batch still equals ``collate``'s."""
+    loader = ploader.Loader(_Misfit(kind), 4, shuffle=False, drop_last=True,
+                            num_workers=2)
+    got = list(loader)
+    want = _collate_twins(loader)
+    for i, (g, w) in enumerate(zip(got, want)):
+        _assert_bitwise(g, w, i)
+    assert loader.shm_fallbacks_by_reason == {"layout_misfit": 1}
+    assert loader.batch_assembly == {"in_place": 12, "collated": 0}
+
+
+def test_items_batches_are_all_written_in_place():
+    loader = ploader.Loader(_Items(), 16, shuffle=False, drop_last=True,
+                            num_workers=3)
+    batches = list(loader)
+    assert len(batches) == 3
+    assert loader.batch_assembly == {"in_place": 3, "collated": 0}
+    assert loader.shm_fallbacks == 0, loader.shm_fallbacks_by_reason

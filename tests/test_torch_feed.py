@@ -167,6 +167,62 @@ def test_a_loader_closed_mid_epoch_unlinks_its_slabs():
             shared_memory.SharedMemory(name=name)
 
 
+class _Rows(_Items):
+    """24 items of 1-3 candidates: rows padded, batches written in place."""
+
+    def __len__(self):
+        return 24
+
+    def num_candidates(self):
+        return 3
+
+    def __getitem__(self, i):
+        cur = 1 + i % 3
+        return {"opt_mask": np.ones(cur, bool),
+                "image_features": np.full((cur, 3, 4), i, np.float32),
+                "ranking_target": np.asarray(i, np.int32)}
+
+
+def test_held_host_batches_stay_equal_to_their_collate_twins():
+    """The benchmark's pattern: a 2-worker Loader under the feed, its host
+    batches kept in a FIFO until their take.  Every third host batch is
+    then held to the end while the others are dropped, so slabs are
+    reused beside held ones: each held batch still equals ``collate`` of
+    its items after every later batch has been taken.  The interpreter
+    switches threads as often as it can, since a slab goes back to the
+    free list on whichever thread drops the last view of its batch."""
+    ds = _Rows()
+    loader = Loader(ds, 2, shuffle=False, drop_last=True, num_workers=2)
+    twins = [ploader.collate([ds[2 * j], ds[2 * j + 1]], 3) for j in range(12)]
+    fifo = collections.deque()
+
+    def host():
+        for batch in loader:
+            fifo.append(batch)
+            yield batch
+
+    held = []
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        for j, dev in enumerate(prefetch_to_device(host(), CPU, 2)):
+            batch = fifo.popleft()
+            for k, v in twins[j].items():
+                np.testing.assert_array_equal(dev[k].numpy(), v)
+            if j % 3 == 0:
+                held.append((j, batch))
+            del batch, dev
+    finally:
+        sys.setswitchinterval(interval)
+    assert len(held) == 4 and not fifo
+    assert loader.batch_assembly == {"in_place": 12, "collated": 0}
+    for j, batch in held:
+        assert list(batch) == list(twins[j])
+        for k, v in twins[j].items():
+            assert batch[k].dtype == v.dtype
+            np.testing.assert_array_equal(batch[k], v, err_msg=f"{j} {k}")
+
+
 def test_feed_counts_count_every_take():
     """Four takes of three batches (the last finds the end); the first
     waits for its batch, the others find theirs ready."""

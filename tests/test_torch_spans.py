@@ -93,7 +93,9 @@ def test_loader_spans(recorded, num_workers, shm):
     """One ``loader.item`` an item, one ``loader.next`` a batch and one
     that finds the epoch's end, with ``loader.wait`` inside them; an item's
     span, on the parent's clock even from a worker, ends before the
-    ``loader.next`` that yields its batch."""
+    ``loader.next`` that yields its batch.  A ``loader.collate`` a batch,
+    except where the workers write the batches in place (shared memory,
+    a static layout): none there."""
     loader = Loader(_Items(), 4, shuffle=False, drop_last=False,
                     num_workers=num_workers, use_shared_memory=shm)
     batches = list(loader)
@@ -110,7 +112,9 @@ def test_loader_spans(recorded, num_workers, shm):
     waits = [s for s in record if s[0] == "loader.wait"]
     assert waits and all(any(_inside(w, n) for n in nexts) for w in waits)
     collates = [s for s in record if s[0] == "loader.collate"]
-    assert len(collates) == 3
+    in_place = 3 if num_workers and shm else 0
+    assert loader.batch_assembly == {"in_place": in_place, "collated": 3 - in_place}
+    assert len(collates) == 3 - in_place
     if num_workers:
         assert all(any(_inside(c, n) for n in nexts) for c in collates)
     else:

@@ -263,6 +263,9 @@ def test_bench_e2e_line(config_file, capsys):
     assert JAX_E2E_DETAIL <= set(out["detail"])
     detail = out["detail"]
     assert detail["steps_timed"] == 1 and detail["slab_overflow"] == 0
+    # no workers: every batch collated on the Loader's thread
+    assert detail["batch_assembly"]["in_place"] == 0
+    assert detail["batch_assembly"]["collated"] >= 3
     assert detail["warm_batches"] == 2 and detail["epoch_start_ms"] > 0
     assert detail["host_batch_bytes"] == detail["h2d_batch_bytes"] > 0
     assert np.isfinite(detail["loss_last"])

@@ -12,12 +12,15 @@ distributed.py:156-180``) with:
     batch has the same shapes
   * a background producer thread with a bounded queue (host pipelining),
     or a fork-based worker pool (``num_workers > 0``) whose workers only
-    assemble numpy items and never call into torch
+    assemble numpy items and never call into torch; where the batch layout
+    is static, each worker writes its item straight into its row of a
+    batch-shaped shared-memory slab, so the consumer collates nothing
 
 Batches are dicts of numpy arrays; ``build_train_step`` moves them to the
 device (``device.to_device``).  ``device.prefetch_to_device`` iterates the
-Loader on a thread of its own (``feed``), so that its wait, slab unpack and
-collate, the pin and the copy of the next batches overlap the step.
+Loader on a thread of its own (``feed``), so that its wait (and collate,
+where the layout is dynamic), the pin and the copy of the next batches
+overlap the step.
 """
 from __future__ import annotations
 
@@ -26,9 +29,11 @@ import ctypes
 import hashlib
 import logging
 import multiprocessing as mp
+import os
 import queue
 import threading
-from typing import Dict, Iterator, List, Optional, Sequence
+import weakref
+from typing import Dict, Iterator, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -62,7 +67,9 @@ def _tune_malloc_for_large_buffers() -> None:
 # creation; tasks pickle only (epoch, idx) pairs, never the dataset)
 _WORKER_DATASET = None
 _WORKER_SEED = 0
-_WORKER_SLABS = None      # list of multiprocessing.shared_memory.SharedMemory
+_WORKER_SLABS = None      # the epoch's shared segments (SharedMemory)
+_WORKER_LAYOUT = None     # the static batch layout (_Layout) of _fill_row
+_WORKER_ROWS: Dict[str, tuple] = {}   # a worker's batch slabs, by name
 
 
 def _item_seed(seed: int, epoch: int, idx: int) -> int:
@@ -213,6 +220,252 @@ def collate(samples: Sequence[Dict[str, np.ndarray]], nc: int,
     return batch
 
 
+# --------------------------------------------------------------------------- #
+# batch-shaped slabs: the workers collate in place
+# --------------------------------------------------------------------------- #
+_ALIGN = 64             # each key's block starts on a cache line
+
+
+class _Field(NamedTuple):
+    """One key of a static batch layout: its batch array is ``shape`` of
+    ``dtype`` at ``offset`` in the slab.  A ``stacked`` key takes a whole
+    item value per row (a scalar ``ranking_target``, ``instr_id``); the
+    others take ``item[:cur]`` and zeros after it, as ``collate`` pads."""
+    key: str
+    dtype: str
+    shape: Tuple[int, ...]
+    offset: int
+    stacked: bool
+    item_dtype: str
+
+
+class _Layout(NamedTuple):
+    fields: Tuple[_Field, ...]
+    nbytes: int
+
+
+def _batch_layout(probes: Sequence[Dict], bs: int, nc: int,
+                  nc_uniq: Optional[int], with_instr_id: bool
+                  ) -> Optional[_Layout]:
+    """The layout of ``collate(items, nc, with_instr_id, nc_uniq)`` for
+    every batch of ``bs`` items like ``probes``, or None when it is not
+    static: the probes disagree on a key, a dtype or a trailing shape, a
+    ``uniq_*`` key has no static count (step-dedup items bucket-pad their
+    own), or a key is one ``collate`` cannot take or pads by item."""
+    keys = [k for k in BATCH_KEYS if k in probes[0]]
+    if any([k for k in BATCH_KEYS if k in p] != keys for p in probes):
+        return None
+    fields, offset = [], 0
+    for k in keys + (["instr_id"] if with_instr_id else []):
+        if any(k not in p for p in probes):
+            return None
+        vs = [np.asarray(p[k]) for p in probes]
+        v0 = vs[0]
+        if any(v.dtype != v0.dtype for v in vs):
+            return None
+        stacked = k == "instr_id" or (k == "ranking_target" and v0.ndim == 0)
+        if stacked:
+            # np.stack's dtype is the items' own: strings grow with them
+            if v0.dtype.kind not in "biuf" or any(v.shape != v0.shape
+                                                  for v in vs):
+                return None
+            shape, dtype = (bs,) + v0.shape, v0.dtype
+        else:
+            if k.startswith("uniq_") and not nc_uniq:
+                return None
+            n0 = nc_uniq if k.startswith("uniq_") else nc
+            if v0.ndim == 0 or any(v.shape[1:] != v0.shape[1:]
+                                   or v.shape[0] > n0 for v in vs):
+                return None
+            shape = (bs, n0) + v0.shape[1:]
+            dtype = np.dtype(bool) if k == "opt_mask" else v0.dtype
+        fields.append(_Field(k, dtype.str, shape, offset, stacked, v0.dtype.str))
+        nbytes = int(np.prod(shape)) * dtype.itemsize
+        offset += -(-nbytes // _ALIGN) * _ALIGN
+    return _Layout(tuple(fields), max(offset, _ALIGN))
+
+
+def _misfit(item, layout: _Layout) -> bool:
+    """Whether ``item`` does not fit its row of ``layout``: another set of
+    batch keys, or a key of another dtype or shape."""
+    keys = {k for k in BATCH_KEYS if k in item}
+    if keys != {f.key for f in layout.fields if f.key != "instr_id"}:
+        return True
+    for f in layout.fields:
+        if f.key not in item:
+            return True
+        v = np.asarray(item[f.key])
+        if v.dtype.str != f.item_dtype:
+            return True
+        if f.stacked:
+            if v.shape != f.shape[1:]:
+                return True
+        elif v.ndim != len(f.shape) - 1 or v.shape[1:] != f.shape[2:] \
+                or v.shape[0] > f.shape[1]:
+            return True
+    return False
+
+
+def _write_row(arrays: Dict[str, np.ndarray], layout: _Layout, row: int,
+               item) -> None:
+    """``collate``'s inner loop for one item: its values into row ``row``
+    of the batch ``arrays``, zero-padded past each value's length."""
+    for f in layout.fields:
+        v = np.asarray(item[f.key])
+        arr = arrays[f.key]
+        if f.stacked:
+            arr[row] = v
+            continue
+        cur = v.shape[0]
+        arr[row, :cur] = v
+        if cur < f.shape[1]:
+            arr[row, cur:] = 0
+
+
+def _arrays(buffer, layout: _Layout, n: Optional[int] = None
+            ) -> Dict[str, np.ndarray]:
+    """The batch's arrays over the slab ``buffer`` (a uint8 array); with
+    ``n``, the first ``n`` rows of each."""
+    out = {}
+    for f in layout.fields:
+        dtype = np.dtype(f.dtype)
+        count = int(np.prod(f.shape))
+        flat = buffer[f.offset:f.offset + count * dtype.itemsize]
+        out[f.key] = flat.view(dtype).reshape(f.shape)[:n]
+    return out
+
+
+def _fill_row(task, name: str, row: int):
+    """Worker: build item ``task`` and write it into row ``row`` of the
+    batch slab ``name`` (attached by name once per worker: the parent
+    makes slabs as the epoch needs them, after the pool forked).  Returns (item, t0, t1) with item None
+    when it was written, or the item itself when it does not fit the
+    layout, for the parent to write and count."""
+    epoch, idx = task
+    t0 = spans.clock()
+    item = _get_item(epoch, idx)
+    if _misfit(item, _WORKER_LAYOUT):
+        return item, t0, spans.clock()
+    if name not in _WORKER_ROWS:
+        from multiprocessing import shared_memory
+        shm = shared_memory.SharedMemory(name=name)
+        _WORKER_ROWS[name] = (shm, _arrays(
+            np.frombuffer(shm.buf, np.uint8), _WORKER_LAYOUT))
+    _write_row(_WORKER_ROWS[name][1], _WORKER_LAYOUT, row, item)
+    return None, t0, spans.clock()
+
+
+class _Slab:
+    """A batch-shaped shared-memory segment, and the address of the
+    parent's mapping of it."""
+
+    def __init__(self, nbytes: int):
+        from multiprocessing import shared_memory
+        self.shm = shared_memory.SharedMemory(create=True, size=nbytes)
+        self.name = self.shm.name
+        self.nbytes = nbytes
+        self.fresh = True        # not yet handed out, so maybe not written
+        view = np.frombuffer(self.shm.buf, np.uint8)
+        self.address = view.ctypes.data
+        del view                # no buffer export outlives this line
+
+
+class _Window:
+    """The base of the arrays of one batch handed out of a slab.
+
+    Its arrays reach the mapping through ``__array_interface__``, which
+    takes no buffer export, so the segment can close once the window is
+    gone; the window keeps the slab, and so the mapping, alive until
+    then."""
+
+    def __init__(self, slab: _Slab):
+        self.slab = slab
+        self.__array_interface__ = {"data": (slab.address, False),
+                                    "shape": (slab.nbytes,), "typestr": "|u1",
+                                    "version": 3}
+
+
+class _BatchSlabs:
+    """The batch slabs of one epoch.
+
+    A slab is handed out as a batch of arrays (``lease``) and goes back to
+    the free list when the last of them, or any view of one, is gone: a
+    ``weakref.finalize`` on the batch's ``_Window``.  With none free,
+    ``take`` makes another while /dev/shm keeps room for it beside the
+    slabs not yet written and an eighth of /dev/shm's size; else it
+    returns None and that batch is collated from pickled items (a write
+    to a full /dev/shm would kill the worker with SIGBUS).  ``close`` unlinks
+    every slab and closes those not handed out; a batch that outlives its
+    epoch keeps its mapping, which closes when the batch goes."""
+
+    def __init__(self, layout: _Layout):
+        self.layout = layout
+        self.slabs: List[_Slab] = []
+        self._free: List[_Slab] = []
+        self._leased = set()
+        self._unwritten = 0      # slabs made but not yet handed out once
+        self._lock = threading.RLock()   # a finalizer may run on any thread
+        self._open = True
+
+    def _room(self) -> bool:
+        try:
+            st = os.statvfs("/dev/shm")
+        except OSError:          # no such file system to run out of
+            return True
+        free = st.f_bavail * st.f_frsize
+        need = (self._unwritten + 1) * self.layout.nbytes
+        return free - need >= st.f_blocks * st.f_frsize // 8
+
+    def take(self) -> Optional[_Slab]:
+        with self._lock:
+            if self._free:
+                return self._free.pop()
+        if not self._room():
+            return None
+        slab = _Slab(self.layout.nbytes)
+        with self._lock:
+            self.slabs.append(slab)
+            self._unwritten += 1
+        return slab
+
+    def write_row(self, slab: _Slab, row: int, item) -> None:
+        _write_row(_arrays(np.asarray(_Window(slab)), self.layout),
+                   self.layout, row, item)
+
+    def lease(self, slab: _Slab, n: int) -> Dict[str, np.ndarray]:
+        """The first ``n`` rows of the batch in ``slab``, as ``collate``
+        would return them."""
+        window = _Window(slab)
+        with self._lock:
+            self._leased.add(slab)
+            if slab.fresh:
+                slab.fresh = False
+                self._unwritten -= 1
+        weakref.finalize(window, self._give_back, slab).atexit = False
+        return _arrays(np.asarray(window), self.layout, n)
+
+    def _give_back(self, slab: _Slab) -> None:
+        with self._lock:
+            self._leased.discard(slab)
+            if self._open:
+                self._free.append(slab)
+                return
+        slab.shm.close()
+
+    def close(self) -> None:
+        with self._lock:
+            self._open = False
+            idle = [s for s in self.slabs if s not in self._leased]
+            self._free = []
+        for slab in self.slabs:
+            try:
+                slab.shm.unlink()
+            except FileNotFoundError:
+                pass
+        for slab in idle:
+            slab.shm.close()
+
+
 class Loader:
     """Iterable over collated batches with background prefetch.
 
@@ -223,10 +476,15 @@ class Loader:
     num_workers > 0 assembles items in a fork-based process pool (the
     reference's DataLoader workers, num_workers=3 per GPU).  Sampling is
     deterministic in (seed, epoch, index) regardless of worker count.
-    Collate runs in the CONSUMER process and is memory-bandwidth-bound.
-    On starved hosts leave num_workers=0 — the transport overhead cannot
-    be amortized without CPUs.  Items that overflow the shared-memory slabs
-    fall back to pickling LOUDLY (warning + ``shm_fallbacks`` counter).
+    Where the batch layout is static (every key's batch shape known from
+    probe items), the workers write each item into its row of a
+    batch-shaped shared-memory slab and the batch is handed out as views
+    of it, equal to ``collate``'s; else collate runs in the CONSUMER
+    process over item slabs.  ``batch_assembly`` counts the batches of
+    each kind.  On starved hosts leave num_workers=0 — the transport
+    overhead cannot be amortized without CPUs.  Items that overflow the
+    shared-memory slabs, or do not fit the batch layout, travel pickled
+    LOUDLY (warning + ``shm_fallbacks`` counter).
     The pool forks: a worker inherits the dataset and runs only numpy and
     the store reader (the datasets import no torch), so forking from a
     process that has initialised CUDA is safe for these workers.
@@ -260,10 +518,14 @@ class Loader:
         # pickle fallbacks off the shared-memory transport, kept loud on
         # purpose (each is a ~40-90 MB pickle on the hot path) and COUNTED
         # BY CAUSE: "slab_overflow" means the slab probe under-sized the
-        # slots
+        # item slots, "layout_misfit" an item unlike the probes of the
+        # static batch layout, "shm_full" a batch /dev/shm had no room for
         self.shm_fallbacks = 0
         self.shm_fallbacks_by_reason: Dict[str, int] = {}
-        self._slab_bytes: Optional[int] = None  # probe once, not per epoch
+        # the yielded batches: written in place by the workers, or collated
+        self.batch_assembly = {"in_place": 0, "collated": 0}
+        # (static batch layout or None, item slab bytes): probe once
+        self._probed: Optional[Tuple[Optional[_Layout], int]] = None
 
     def set_epoch(self, epoch: int):
         self.epoch = epoch
@@ -308,8 +570,39 @@ class Loader:
         return order
 
     def _collate(self, buf: List[Dict]) -> Dict[str, np.ndarray]:
+        self.batch_assembly["collated"] += 1
         with spans.span("loader.collate"):
             return collate(buf, self.nc, self.with_instr_id, self.nc_uniq)
+
+    def _fallback(self, reason: str, nbytes: int) -> None:
+        self.shm_fallbacks += 1
+        n = self.shm_fallbacks_by_reason.get(reason, 0) + 1
+        self.shm_fallbacks_by_reason[reason] = n
+        if n == 1:
+            logging.getLogger(__name__).warning(
+                "loader fell back to pickle transport (%s; slab %d bytes) — "
+                "a performance cliff (loader.shm_fallbacks_by_reason counts "
+                "occurrences by cause)", reason, nbytes)
+
+    def _probe(self, tasks) -> Tuple[Optional[_Layout], int]:
+        """Items from several points of the epoch, not just item 0: the
+        static batch layout they share, if any, and the item slab size.
+        Variable-size layouts (--dedup_beam_steps buckets uniq step blocks
+        in multiples of STEP_BUCKET) vary by integer factors between items,
+        which a single probe + 25% headroom cannot cover (every larger item
+        would take the loud pickle-fallback cliff).  _get_item reseeds per
+        item, so probing does not disturb worker determinism.  Item
+        geometry is epoch-independent (shapes are static or bucketed), so
+        this runs once per Loader: each probe assembles a full item in the
+        parent (29-555 ms at flagship geometry)."""
+        n = len(tasks)
+        probes = [_get_item(*tasks[i])
+                  for i in sorted({0, n // 3, (2 * n) // 3, n - 1})]
+        layout = _batch_layout(probes, self.batch_size, self.nc,
+                               self.nc_uniq, self.with_instr_id)
+        slab_bytes = 4096 + int(1.25 * max(
+            sum(np.asarray(v).nbytes for v in p.values()) for p in probes))
+        return layout, slab_bytes
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         """The batches, each under a ``loader.next`` span from the resume
@@ -324,6 +617,7 @@ class Loader:
                 if batch is None:
                     return
                 yield batch
+                del batch       # a slab frees as soon as the consumer lets go
         finally:
             batches.close()
 
@@ -347,12 +641,16 @@ class Loader:
         (seed, epoch, index) regardless of worker count: each worker
         reseeds the dataset RNGs per item.
 
-        Transport: with use_shared_memory (default) workers write arrays
-        into preallocated SharedMemory slabs, one per task, handed out by
-        the parent, and send only the schema through the result pipe — no
-        pickling of the ~40-90 MB items.  Slots are recycled after
-        collation copies the views."""
-        global _WORKER_DATASET, _WORKER_SEED, _WORKER_SLABS
+        Transport, with use_shared_memory (default): where the probes give
+        a static batch layout, batch-shaped SharedMemory slabs
+        (``_BatchSlabs``): the parent hands out a batch's tasks, each with
+        its slab and row, once it has a slab for it, and yields the batch
+        as views of the slab when every row is in; a slab is reused only
+        once nothing views it.  Else one slab per item, handed out by the
+        parent, and only the schema goes through the result pipe; slots
+        are recycled after collation copies the views.  Either way no
+        ~40-90 MB item is pickled.  Without it, pickled items."""
+        global _WORKER_DATASET, _WORKER_SEED, _WORKER_SLABS, _WORKER_LAYOUT
         order = self._order()
         ctx = mp.get_context("fork")
         _WORKER_DATASET = self.dataset
@@ -360,38 +658,50 @@ class Loader:
         tasks = [(self.epoch, int(i)) for i in order]
 
         slabs = []
+        batch_slabs = None
         if self.use_shared_memory and tasks:
-            from multiprocessing import shared_memory
-            # size from several probes spread across the epoch, not just
-            # item 0: variable-size layouts (--dedup_beam_steps buckets
-            # uniq step blocks in multiples of STEP_BUCKET) vary by
-            # integer factors between items, which a single probe + 25%
-            # headroom cannot cover (every larger item would take the
-            # loud pickle-fallback cliff).  _get_item reseeds per item,
-            # so probing does not disturb worker determinism.
-            if self._slab_bytes is None:
-                # item geometry is epoch-independent (shapes are static or
-                # bucketed), so probe once per Loader: each probe assembles
-                # a full item in the parent (29-555 ms at flagship
-                # geometry) — re-probing every epoch would stall each
-                # epoch start for ~4 item times.  The 25% headroom plus the
-                # loud pickle fallback covers any residual spread.
-                n = len(tasks)
-                probe_idx = sorted({0, n // 3, (2 * n) // 3, n - 1})
-                self._slab_bytes = 4096 + int(1.25 * max(
-                    sum(np.asarray(v).nbytes for v in
-                        _get_item(*tasks[i]).values())
-                    for i in probe_idx))
-            slab_bytes = self._slab_bytes
-            n_slots = self.num_workers + self.batch_size + 2
-            for i in range(n_slots):
-                slabs.append(shared_memory.SharedMemory(
-                    create=True, size=slab_bytes))
-            _WORKER_SLABS = slabs
+            if self._probed is None:
+                self._probed = self._probe(tasks)
+            layout, slab_bytes = self._probed
+            if layout is not None:
+                from multiprocessing import resource_tracker
+                # workers attach to slabs made after the fork by name: with
+                # the tracker running before the fork they register with
+                # it, not each with one of its own that unlinks at its exit
+                resource_tracker.ensure_running()
+                batch_slabs = _BatchSlabs(layout)
+                _WORKER_LAYOUT = layout
+                _WORKER_SLABS = batch_slabs.slabs
+            else:
+                from multiprocessing import shared_memory
+                n_slots = self.num_workers + self.batch_size + 2
+                for i in range(n_slots):
+                    slabs.append(shared_memory.SharedMemory(
+                        create=True, size=slab_bytes))
+                _WORKER_SLABS = slabs
 
+        buf: List[Dict] = []
         try:
             with ctx.Pool(self.num_workers) as pool:
-                if slabs:
+                if batch_slabs is not None:
+                    # the batch gathered next and up to ``prefetch`` more
+                    # in the workers' queue, in task order
+                    groups = (tasks[i:i + self.batch_size]
+                              for i in range(0, len(tasks), self.batch_size))
+                    queued = collections.deque()
+                    while True:
+                        while len(queued) <= max(1, self.prefetch):
+                            group = next(groups, None)
+                            if group is None:
+                                break
+                            queued.append(self._submit(pool, group,
+                                                       batch_slabs))
+                        if not queued:
+                            break
+                        batch = self._gather(*queued.popleft(), batch_slabs)
+                        yield batch
+                        del batch
+                elif slabs:
                     # the parent hands out the slots, a task only when one
                     # is free and in task order: workers never wait for a
                     # slot, and the next item in order always has one (a
@@ -412,7 +722,6 @@ class Loader:
                                 _fetch_shm, (task, slot)), slot))
 
                     submit()
-                    buf: List[Dict] = []
                     used_slots: List[int] = []
                     while pending:
                         res, slot = pending.popleft()
@@ -423,17 +732,7 @@ class Loader:
                             buf.append(_unpack_from_slab(slabs[slot], payload))
                             used_slots.append(slot)
                         else:
-                            self.shm_fallbacks += 1
-                            self.shm_fallbacks_by_reason[payload] = \
-                                self.shm_fallbacks_by_reason.get(payload,
-                                                                 0) + 1
-                            if self.shm_fallbacks_by_reason[payload] == 1:
-                                logging.getLogger(__name__).warning(
-                                    "loader fell back to pickle transport "
-                                    "(%s; slab %d bytes) — a performance "
-                                    "cliff (loader.shm_fallbacks_by_reason "
-                                    "counts occurrences by cause)", payload,
-                                    slabs[0].size)
+                            self._fallback(payload, slabs[0].size)
                             buf.append(item)
                             free.append(slot)
                         if len(buf) == self.batch_size:
@@ -445,7 +744,6 @@ class Loader:
                     if buf and not self.drop_last:
                         yield self._collate(buf)
                 else:
-                    buf = []
                     chunk = max(1, self.batch_size // self.num_workers)
                     items = pool.imap(_fetch, tasks, chunksize=chunk)
                     while True:
@@ -463,9 +761,13 @@ class Loader:
                         yield self._collate(buf)
         finally:
             # a consumer that stops mid-epoch leaves the items of the batch
-            # it was handed in ``buf``, each a view of its slab: dropped
-            # first, since a slab that is still viewed cannot close
+            # it was handed in ``buf``, each a view of its item slab:
+            # dropped first, since a slab that is still viewed cannot close
+            # (batch slabs are viewed without a buffer export: those still
+            # handed out close when their batch goes)
             buf = None
+            if batch_slabs is not None:
+                batch_slabs.close()
             for slab in slabs:
                 try:
                     slab.unlink()   # free the segment even if views linger
@@ -476,6 +778,36 @@ class Loader:
                 except Exception:
                     pass
             _WORKER_SLABS = None
+            _WORKER_LAYOUT = None
+
+    def _submit(self, pool, group, batch_slabs: _BatchSlabs):
+        """The tasks of one batch to the workers, each with its row of the
+        batch's slab; pickled where /dev/shm has no room for another."""
+        slab = batch_slabs.take()
+        if slab is None:
+            return None, [pool.apply_async(_fetch, (t,)) for t in group]
+        return slab, [pool.apply_async(_fill_row, (t, slab.name, row))
+                      for row, t in enumerate(group)]
+
+    def _gather(self, slab: Optional[_Slab], results,
+                batch_slabs: _BatchSlabs) -> Dict[str, np.ndarray]:
+        """The batch of ``_submit`` once every row is in: views of its
+        slab, or collated from the pickled items."""
+        items = []
+        for row, res in enumerate(results):
+            with spans.span("loader.wait"):
+                item, t0, t1 = res.get()
+            spans.record("loader.item", t0, t1, "worker")
+            if slab is None:
+                self._fallback("shm_full", batch_slabs.layout.nbytes)
+                items.append(item)
+            elif item is not None:
+                self._fallback("layout_misfit", batch_slabs.layout.nbytes)
+                batch_slabs.write_row(slab, row, item)
+        if slab is None:
+            return self._collate(items)
+        self.batch_assembly["in_place"] += 1
+        return batch_slabs.lease(slab, len(results))
 
 
 def microbatch_reshape(batch: Dict[str, np.ndarray], accum: int

@@ -121,6 +121,9 @@ def _feed(batches, device: torch.device, stream, slots: threading.Semaphore,
                         with torch.cuda.stream(stream):
                             out = to_device(host, device)
                             event = stream.record_event()
+                # the host batch may view a Loader's slab: let it go now,
+                # not at the next ``next()``, so the slab can be refilled
+                del host
                 ready.put((out, event))
     except BaseException as e:  # handed to the consumer, who raises it
         ready.put(e)
@@ -154,9 +157,10 @@ def prefetch_to_device(batches: Iterable[Dict[str, np.ndarray]],
     """``batches`` through ``to_device``, in order, from a feed thread.
 
     The first ``next()`` starts a daemon thread named ``feed``, which alone
-    iterates ``batches`` (for a ``Loader``: its wait, slab unpack and
-    collate) and runs each batch's ``to_device`` under a ``feed.transfer``
-    span (lane ``feed``).  While the consumer uses batch k, at most
+    iterates ``batches`` (for a ``Loader``: its wait, and its collate where
+    the workers do not write the batch in place) and runs each batch's
+    ``to_device`` under a ``feed.transfer`` span (lane ``feed``), keeping
+    no host batch past it.  While the consumer uses batch k, at most
     ``depth`` later batches are ready or in flight.  Each take is a
     ``feed.wait`` span on the consumer's thread and counts in
     ``FEED_COUNTS``.  To CUDA the copies run on a stream of their own; at

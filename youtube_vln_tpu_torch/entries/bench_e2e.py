@@ -30,10 +30,11 @@ sets the window.  (The JAX script times whole epochs, start-up included.)
 Then as many steps on one batch staged on the device, between two CUDA
 events (the host clock on the CPU), for the gap.  It reports the host
 bytes and the host-to-device bytes per batch, so the
-``--dedup_candidates`` saving is measured, and the Loader's pickle
+``--dedup_candidates`` saving is measured, the Loader's pickle
 fallbacks by cause (``slab_overflow``: a batch outgrew its shared-memory
-slab).  Prints one JSON line, the JAX script's keys with the card's name
-and power limit.
+slab) and its batches by how they were assembled (``batch_assembly``:
+written in place by the workers, or collated).  Prints one JSON line,
+the JAX script's keys with the card's name and power limit.
 """
 from __future__ import annotations
 
@@ -158,13 +159,13 @@ def main(argv=None) -> dict:
         # device only: the same step on one staged batch
         loader.set_epoch(0)
         it = iter(loader)
-        # copied out of the Loader's shared-memory slab before it is freed
-        dbatch = to_device({k: np.array(v) for k, v in next(it).items()}, device)
+        dbatch = to_device(next(it), device)
         it.close()
         for _ in range(2):
             step(dbatch, next(seeds))
         dt_dev = elapsed_ms(lambda: step(dbatch, next(seeds)), n_steps, device) / 1e3
         fallbacks = dict(loader.shm_fallbacks_by_reason)
+        assembly = dict(loader.batch_assembly)
         reader.close()
 
     traj = ns.batch_size * nc
@@ -191,6 +192,7 @@ def main(argv=None) -> dict:
             "num_workers": ns.num_workers,
             "slab_overflow": fallbacks.get("slab_overflow", 0),
             "shm_fallbacks": fallbacks,
+            "batch_assembly": assembly,
             "device": dev["name"],
             "timing": ("host clock end to end (steady state); cuda events "
                        "device only"

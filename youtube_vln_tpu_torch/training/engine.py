@@ -9,8 +9,8 @@ Replaces the reference's ``utils/dataset/dataset_init.py`` (loader wiring),
   * one train step per optimizer step (``parallel/train_step.py``); its
     metrics stay on the device and are read back once per log window
   * the input pipeline runs on a feed thread (``device.prefetch_to_device``:
-    the Loader's collate, pinned memory, copies on a stream of their own),
-    overlapping the steps
+    the Loader's batches, written in place by its workers, pinned memory,
+    copies on a stream of their own), overlapping the steps
   * checkpoints are reference-interop ``.bin`` files with the optimizer
     state for ``--resume``, written by rank 0, or with
     ``--orbax_checkpoints`` ``torch.distributed.checkpoint`` directories

@@ -5,7 +5,8 @@ The Loader, the device feed and the steps open spans at their work::
     loader.next        the consumer, from the Loader's resume to its yield
       loader.wait        waiting on the producer thread's queue or a worker
       loader.collate     stacking items into a batch (producer thread in
-                         the threaded path)
+                         the threaded path); none where the workers
+                         write the batch in place
     loader.item        one item assembled (producer thread, or a worker)
     feed.wait          a take of ``device.prefetch_to_device``: the consumer
                        waiting for the feed thread's next batch
