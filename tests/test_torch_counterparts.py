@@ -27,6 +27,8 @@ Run the map and the parity files it leans on with
 tests/test_torch_parity_*.py``."""
 import ast
 import functools
+import json
+import re
 from pathlib import Path
 
 import pytest
@@ -55,8 +57,26 @@ XLA_CACHE = ('the XLA compilation cache; --compilation_cache_dir moves the CUDA 
     "kernels' build directory instead (ops/_build.py:set_build_dir)")
 RBG = ('the JAX RBG dropout key; every dropout site of the port draws Philox or '
     'torch bits (ops/philox.py, models/layers.py:DropoutRng)')
-JITTER = ("defeats the TPU runtime's memoisation of identical dispatches; the port "
-    'times one staged batch with CUDA events (utils/measure.py)')
+
+
+def _benchmark(what, cells, metrics):
+    """The reason of a JAX timing script whose place the port's benchmark
+    (``BENCHMARK.json``, ``python3 benchmark/run.py``) takes: the cells and
+    metrics that stand for it, which ``test_benchmark_reasons_name_cells``
+    holds to the file."""
+    return (f"{what}; the port's speed is the benchmark's: cells {', '.join(cells)}; "
+            f"metrics {', '.join(metrics)}")
+
+
+# root bench.py and scripts/bench_serving.py time one staged batch
+BENCH_TRAIN = _benchmark("MRT trajectories/s and MFU of one staged batch",
+                         ("pretrain.mrt_ytb", "finetune.30rs"),
+                         ("train_traj_per_s", "mfu.train"))
+BENCH_RERANK = _benchmark("beams/s of staged re-ranking dispatches",
+                          ("rerank.r2r_val_bs1",),
+                          ("rerank_beams_per_s", "rerank_p95_ms"))
+BENCHMARK_FILES = ("bench.py", "scripts/bench_serving.py")
+
 DRYRUN = ("a multi-chip compile dry run of the JAX step; the port's DP and TP paths "
     'run in tests/test_torch_distributed*.py, test_torch_tensor_parallel*.py '
     'and chip_smoke.py phases 14-15')
@@ -878,17 +898,11 @@ COUNTERPARTS = {
                  "test_torch_tools.py::test_bench_loader_eval_bytes_match_jax"),
     },
     "scripts/bench_serving.py": {
-        "build_eval_batch": ("entries/bench_serving.py:build_eval_batch",
-                             "test_torch_tools.py::test_bench_serving_line_and_batches_match_jax"),
-        "build_dedup_eval_batch": (
-            "entries/bench_serving.py:build_dedup_eval_batch",
-            "test_torch_tools.py::test_bench_serving_line_and_batches_match_jax"),
-        "make_jitter": JITTER,
-        "time_dispatch_windows": (
-            "entries/bench_serving.py:time_dispatch_windows",
-            "test_torch_tools.py::test_bench_serving_line_and_batches_match_jax"),
-        "main": ("entries/bench_serving.py:main",
-                 "test_torch_tools.py::test_bench_serving_line_and_batches_match_jax"),
+        "build_eval_batch": BENCH_RERANK,
+        "build_dedup_eval_batch": BENCH_RERANK,
+        "make_jitter": BENCH_RERANK,
+        "time_dispatch_windows": BENCH_RERANK,
+        "main": BENCH_RERANK,
     },
     "scripts/build_testset.py": {
         "main": ("entries/build_testset.py:main",
@@ -949,11 +963,11 @@ COUNTERPARTS = {
     },
     "scripts/profile_step.py": {
         "build_batch": ("utils/measure.py:pretrain_batch",
-                        "test_torch_tools.py::test_profile_step_variants_and_table"),
+                        "test_torch_tools.py::test_profile_step_variants"),
         "time_fn": ("entries/profile_step.py:Profiler.time",
-                    "test_torch_tools.py::test_profile_step_variants_and_table"),
+                    "test_torch_tools.py::test_profile_step_variants"),
         "main": ("entries/profile_step.py:main",
-                 "test_torch_tools.py::test_profile_step_variants_and_table"),
+                 "test_torch_tools.py::test_profile_step_variants"),
     },
     "train.py": {
         "main": ("entries/train.py:main",
@@ -968,9 +982,8 @@ COUNTERPARTS = {
                  "test_torch_test_entry.py::test_entry_matches_jax_test_py"),
     },
     "bench.py": {
-        "main": ("entries/bench.py:main", "test_torch_tools.py::test_bench_line"),
-        "bench_eval_path": ("entries/bench.py:bench_eval_path",
-                            "test_torch_tools.py::test_bench_line"),
+        "main": BENCH_TRAIN,
+        "bench_eval_path": BENCH_RERANK,
     },
     "__graft_entry__.py": {
         "entry": GRAFT,
@@ -1079,3 +1092,23 @@ def test_counterpart_map_holds_for_the_file(jax_file):
         assert not via or via[0] in COUNTERPARTS, f"{where}: via {via}"
         assert _reaches(test_file, via[0] if via else jax_file), (
             f"{where}: {test_file} reaches neither the file nor a caller of it")
+
+
+@pytest.mark.parametrize("jax_file", BENCHMARK_FILES)
+def test_benchmark_reasons_name_cells(jax_file):
+    """Each name of a timing script that the benchmark replaced names
+    workloads of ``BENCHMARK.json`` and metrics that those workloads
+    report, so renaming a cell or a metric there breaks the map here."""
+    bench = json.loads((REPO / "BENCHMARK.json").read_text())
+    workloads = {w["name"] for w in bench["workloads"]}
+    metrics = {m["name"]: set(m.get("workloads") or workloads)
+               for m in bench["end_to_end"] + bench["per_layer"]}
+    for name, reason in COUNTERPARTS[jax_file].items():
+        match = re.search(r"cells ([\w.]+(?:, [\w.]+)*); metrics ([\w.]+(?:, [\w.]+)*)$",
+                          reason if isinstance(reason, str) else "")
+        assert match, f"{jax_file}:{name} names no benchmark cell: {reason}"
+        cells, named = (g.split(", ") for g in match.groups())
+        assert set(cells) <= workloads, f"{jax_file}:{name}: {cells}"
+        for metric in named:
+            assert metric in metrics and set(cells) <= metrics[metric], (
+                f"{jax_file}:{name}: {metric} is not a metric of {cells}")

@@ -3,6 +3,7 @@ networkx (absent on the card machine), its entry points and tools refuse
 to run on a machine without CUDA unless the caller asks for the CPU, and
 its host code and host tools import no torch."""
 import os
+import pkgutil
 import re
 import shutil
 import subprocess
@@ -11,6 +12,32 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "youtube_vln_tpu_torch"
+
+# every module of the package, packages aside: ``_CHECK`` imports each, and
+# ``test_module_list_covers_the_package`` holds the list to the package
+MODULES = (
+    "config", "device", "utils.cli", "utils.entry", "utils.misc", "utils.file_cache",
+    "utils.measure", "utils.spans",
+    "ops._build", "ops._rowwise", "ops.attention", "ops.epilogue", "ops.layer_norm",
+    "ops.philox", "ops.masking",
+    "models.layers", "models.vilbert", "models.weights", "models.legacy",
+    "training.losses", "training.optimization", "training.engine",
+    "training.checkpoint",
+    "parallel.train_step", "parallel.distributed", "parallel.mesh", "parallel.tensor",
+    "data.store", "data.features_reader", "data.tokenizer", "data.sampling",
+    "data.instructions", "data.datasets", "data.loader", "data.fixtures",
+    "data.nav_graph",
+    "evaluation.beam_eval", "evaluation.metrics",
+    "pipeline.resize", "pipeline.places365", "pipeline.maskrcnn", "pipeline.clip_model",
+    "pipeline.inverse_action", "pipeline.filters", "pipeline.clip_captions",
+    "pipeline.detector", "pipeline.extraction", "pipeline.build_dataset",
+    "pipeline.merge_photos", "pipeline.frames", "pipeline.assets",
+    "entries.test", "entries.calculate_metrics", "entries.train", "entries.pretrain",
+    "entries.clip_features", "entries.extract_features", "entries.convert_tsv",
+    "entries.merge_photos", "entries.build_testset", "entries.merge_stores",
+    "entries.convert_lmdb", "entries.extract_frames", "entries.check_kernels",
+    "entries.profile_step", "entries.bench_e2e", "entries.bench_loader",
+    "entries.northstar")
 
 _CHECK = r"""
 import importlib, pkgutil, sys
@@ -21,26 +48,7 @@ for name in names:
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "youtube_vln_tpu", "networkx"))
 assert not leaked, leaked
-for module in ("device", "ops.philox", "ops.epilogue", "ops.masking",
-               "training.losses", "training.optimization", "parallel.train_step",
-               "parallel.distributed", "parallel.mesh", "parallel.tensor",
-               "data.store", "data.features_reader", "data.tokenizer",
-               "data.sampling", "data.instructions", "data.datasets",
-               "data.loader", "data.fixtures", "data.nav_graph",
-               "evaluation.metrics", "training.engine", "training.checkpoint",
-               "utils.cli", "utils.entry", "utils.misc", "entries.test",
-               "entries.calculate_metrics", "entries.train", "entries.pretrain",
-               "models.legacy", "pipeline.resize", "pipeline.places365",
-               "pipeline.maskrcnn", "pipeline.clip_model", "pipeline.inverse_action",
-               "pipeline.filters", "pipeline.clip_captions", "pipeline.detector",
-               "pipeline.extraction", "pipeline.build_dataset", "pipeline.merge_photos",
-               "entries.clip_features", "entries.extract_features",
-               "entries.convert_tsv", "entries.merge_photos", "entries.build_testset",
-               "utils.file_cache", "utils.measure", "pipeline.frames", "pipeline.assets",
-               "entries.merge_stores", "entries.convert_lmdb", "entries.extract_frames",
-               "entries.check_kernels", "entries.profile_step", "entries.bench",
-               "entries.bench_serving", "entries.bench_e2e", "entries.bench_loader",
-               "entries.northstar", "utils.spans"):
+for module in sys.argv[1:]:
     assert pkg.__name__ + "." + module in names, module
 
 import os, tempfile
@@ -79,10 +87,9 @@ for call in (lambda: beam_eval.eval_epoch(model, cfg, []),
     else:
         raise SystemExit("an entry point ran without CUDA and without device='cpu'")
 # the tools: the device is resolved before a model, a fixture or a folder
-from youtube_vln_tpu_torch.entries import (bench, bench_e2e, bench_serving,
-                                           check_kernels, northstar, profile_step)
+from youtube_vln_tpu_torch.entries import (bench_e2e, check_kernels, northstar,
+                                           profile_step)
 for call in (lambda: check_kernels.main([]), lambda: profile_step.main(["full"]),
-             lambda: bench.main([]), lambda: bench_serving.main([]),
              lambda: bench_e2e.main(["--n_videos", "2"]),
              lambda: northstar.main(["--data_dir", "absent", "--img_feature",
                                      "absent.vlnstore", "--from_pretrained", "x.bin",
@@ -150,9 +157,20 @@ def _run(args, cwd):
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    r = _run(["-c", _CHECK], REPO)
+    r = _run(["-c", _CHECK, *MODULES], REPO)
     assert r.returncode == 0, r.stdout + r.stderr
     assert r.stdout.strip().endswith("isolated")
+
+
+def test_module_list_covers_the_package():
+    """``MODULES`` names every module that ``pkgutil.walk_packages`` finds
+    in the package: a module added without its entry fails here, one
+    deleted with its entry left fails the import check."""
+    import youtube_vln_tpu_torch as pkg
+    prefix = pkg.__name__ + "."
+    found = {m.name[len(prefix):] for m in pkgutil.walk_packages(pkg.__path__, prefix)
+             if not m.ispkg}
+    assert found <= set(MODULES), sorted(found - set(MODULES))
 
 
 _HOST_ONLY = r"""
@@ -220,7 +238,6 @@ def test_sources_hold_no_jax_import():
     pattern = re.compile(r"^\s*(import|from)\s+(jax|youtube_vln_tpu|networkx)\b(?!_torch)",
                          re.MULTILINE)
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py",
-                                          REPO / "eval_timing.py",
                                           REPO / "kernel_timing.py"]
     assert {"philox.py", "optimization.py", "device.py"} <= {f.name for f in files}
     for f in files:
@@ -236,12 +253,6 @@ def test_chip_smoke_fails_without_a_card(tmp_path):
         r = _run(["chip_smoke.py"], cwd)
         assert r.returncode != 0, r.stdout
         assert '"ok": true' not in r.stdout
-
-
-def test_eval_timing_fails_without_a_card():
-    r = _run(["eval_timing.py"], REPO)
-    assert r.returncode != 0, r.stdout
-    assert "no CUDA device" in r.stderr
 
 
 def test_kernel_timing_fails_without_a_card():

@@ -14,7 +14,7 @@ candidates per item.
 ``--eval`` switches to the beam-eval path (``BeamDataset`` at the R2R
 ``test.py`` geometry: 30 beams x 8 steps x 101 boxes per instruction) and
 reports the dense against the step-dedup assembly cost and host bytes side
-by side, the host-side complement of ``bench_serving --dedup``.
+by side.
 
 Prints one JSON line, the JAX script's keys with the card's name and power
 limit where ``nvidia-smi`` finds one (``device``; the numbers are host

@@ -2,7 +2,7 @@
 locate the bottleneck (the counterpart of ``scripts/profile_step.py``).
 
     python -m youtube_vln_tpu_torch.entries.profile_step [VARIANT ...]
-        [--recipe mrt|30rs] [--table] [--config_file F] [--batch_size B]
+        [--recipe mrt|30rs] [--config_file F] [--batch_size B]
         [--steps N] [--device cpu]
 
 Recipes: ``mrt`` (default, the JAX script's) is the pretraining step of
@@ -30,19 +30,14 @@ Variants (default ``full fwd encoder``):
 ``full_rbg`` (the JAX RBG generator) has no counterpart and is refused.
 
 Each variant runs 2 warm-up calls, then ``--steps`` calls between two CUDA
-events (the host clock on the CPU).  ``--table`` traces one more ``full``
-step with ``torch.profiler`` (CPU and CUDA activity, synchronised before
-the profile closes) and prints a ``profile`` JSON line: the top ops by
-self device time with their calls, the top kernels with their launches,
-and the step's busy and idle share of the device.  The last line is one
-JSON object of ms per variant, with the card's name and power limit.
+events (the host clock on the CPU).  The last line is one JSON object of
+ms per variant, with the card's name and power limit.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import json
-import time
 from typing import Callable, Dict
 
 import numpy as np
@@ -53,8 +48,7 @@ from ..device import resolve_device, to_device
 from ..models import Lily
 from ..models.layers import DropoutRng
 from ..parallel import train_step as ts
-from ..utils.measure import (RECIPES, S_T, S_V, card, elapsed_ms, recipe,
-                             synchronize)
+from ..utils.measure import RECIPES, S_T, S_V, card, elapsed_ms, recipe
 
 VARIANTS = ("full", "full_xla", "full_epi", "full_nodrop", "full_noattndrop",
             "full_nohiddendrop", "noopt", "fwd_train", "fwd", "fwd_dense",
@@ -66,7 +60,6 @@ DROPOUTS = {"full_nodrop": ("hidden_dropout_prob", "attention_probs_dropout_prob
             "full_noattndrop": ("attention_probs_dropout_prob",
                                 "v_attention_probs_dropout_prob"),
             "full_nohiddendrop": ("hidden_dropout_prob", "v_hidden_dropout_prob")}
-TOP = 25
 
 
 class Profiler:
@@ -95,14 +88,11 @@ class Profiler:
         calls = iter(range(self.steps))
         return elapsed_ms(lambda: fn(next(calls)), self.steps, self.device)
 
-    def build_train_step(self, cfg):
-        """(model, step) of the recipe's optimizer step on ``cfg``."""
+    def train_step(self, cfg) -> Callable[[int], object]:
+        """The recipe's optimizer step on ``cfg``."""
         model = self.model(cfg)
         optimizer, _ = ts.create_train_state(model, self.args, steps_per_epoch=1000)
-        return model, ts.build_train_step(model, cfg, self.args, optimizer, self.device)
-
-    def train_step(self, cfg) -> Callable[[int], object]:
-        step = self.build_train_step(cfg)[1]
+        step = ts.build_train_step(model, cfg, self.args, optimizer, self.device)
         return lambda i: step(self.batch, i)
 
     def variant(self, name: str) -> Callable[[int], object]:
@@ -168,67 +158,11 @@ class Profiler:
             return fn
         raise ValueError(f"unknown variant {name!r}")
 
-    def table(self) -> dict:
-        """One ``full`` step under ``torch.profiler``, on a model of its own
-        after two warm-up steps (no variant's model is alive, so the
-        allocator serves the step as it serves a timed one): the top ops and
-        kernels, and the device's busy and idle share of the step."""
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
-
-        fn = self.train_step(self.cfg)
-        for i in range(2):
-            fn(2000 + i)
-        synchronize(self.device)
-        on_card = self.device.type == "cuda"
-        activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if on_card else [])
-        with profile(activities=activities) as prof:
-            t0 = time.perf_counter()
-            fn(2002)
-            synchronize(self.device)
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        events = prof.key_averages()
-        out = {"profile": "full", "recipe": self.recipe,
-               "batch": [self.bs, self.nc, S_T, S_V], "wall_ms": wall_ms,
-               "device": card(self.device)}
-        if not on_card:
-            ops = sorted((e for e in events if e.self_cpu_time_total > 0),
-                         key=lambda e: -e.self_cpu_time_total)[:TOP]
-            out["ops"] = [{"op": e.key, "self_cpu_ms": e.self_cpu_time_total / 1e3,
-                           "calls": e.count} for e in ops]
-            out["device_busy_ms"] = out["device_idle_share"] = "not measured"
-            return out
-        # user annotations (the optimizer's step range) carry the device
-        # time of the kernels inside them: counting both would count twice
-        kernels = [e for e in events if e.device_type == DeviceType.CUDA
-                   and not getattr(e, "is_user_annotation", False)]
-        busy = sum(e.self_device_time_total for e in kernels) / 1e3
-        # "Command Buffer Full" is the runtime waiting for room in the
-        # launch queue, not an op: the kernels behind it belong to ops
-        ops = sorted((e for e in events if e.device_type == DeviceType.CPU
-                      and e.self_device_time_total > 0
-                      and not getattr(e, "is_user_annotation", False)
-                      and e.key != "Command Buffer Full"),
-                     key=lambda e: -e.self_device_time_total)
-        top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:TOP]
-        out.update(
-            device_busy_ms=busy, device_idle_share=1.0 - busy / wall_ms,
-            ops=[{"op": e.key, "self_device_ms": e.self_device_time_total / 1e3,
-                  "share_of_busy": e.self_device_time_total / 1e3 / busy,
-                  "calls": e.count} for e in ops[:TOP]],
-            ops_device_ms=sum(e.self_device_time_total for e in ops) / 1e3,
-            kernels=[{"kernel": e.key[:90],
-                      "self_device_ms": e.self_device_time_total / 1e3,
-                      "launches": e.count} for e in top])
-        return out
-
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("variants", nargs="*", default=["full", "fwd", "encoder"])
     ap.add_argument("--recipe", default="mrt", choices=sorted(RECIPES))
-    ap.add_argument("--table", action="store_true",
-                    help="trace one full step: the per-op device time table")
     ap.add_argument("--config_file", default="",
                     help="model topology (default lily_base_config)")
     ap.add_argument("--batch_size", type=int, default=0,
@@ -260,10 +194,7 @@ def main(argv=None) -> dict:
            "batch": [prof.bs, prof.nc, S_T, S_V],
            "timing": "cuda events" if prof.device.type == "cuda" else "host clock",
            "device": card(prof.device)}
-    if ns.table:
-        out["table"] = prof.table()
-        print(json.dumps(out["table"]))
-    print(json.dumps({k: v for k, v in out.items() if k != "table"}))
+    print(json.dumps(out))
     return out
 
 

@@ -15,13 +15,6 @@ from typing import Callable, Dict, Optional
 
 import numpy as np
 
-# NVIDIA H100 SXM, dense bf16 tensor-core peak (data sheet, 700 W)
-PEAK_BF16_FLOPS = 989e12
-# the matmul operations of one MRT trajectory's forward and backward: a
-# forward of ~155 GF (text 12 x 768 at 60 tokens ~10, vision 6 x 1024 at
-# 808 tokens ~77, 6 connection layers ~68), times 3
-FLOPS_PER_TRAJ = 0.465e12
-
 
 def nvidia_smi(index: int = 0) -> Optional[Dict[str, str]]:
     """{"name", "power_limit"} of card ``index`` as ``nvidia-smi
@@ -144,23 +137,17 @@ RECIPES = {
 
 
 def recipe(name: str, config_file: str = ""):
-    """(model config, run settings) of recipe ``name``: the topology of
-    ``model_config(config_file)`` from seed 0 in bf16 with the attention
-    kernels, remat off; the settings are ``RunConfig`` keywords (the tasks,
-    the optimizer, one epoch, no accumulation)."""
-    spec = RECIPES[name]
-    cfg = model_config(config_file, compute_dtype="bfloat16",
-                       use_attention_kernels=True, remat=False, **spec["tasks"])
-    return cfg, dict(**spec["tasks"], **spec["run"], num_epochs=1,
-                     gradient_accumulation_steps=1)
-
-
-def model_config(config_file: str = "", **overrides):
-    """``lily_base_config`` (the flagship), or the topology of
-    ``config_file``, with ``overrides`` (tasks, dtype, kernel knobs)."""
+    """(model config, run settings) of recipe ``name``: ``lily_base_config``
+    (the flagship), or the topology of ``config_file``, in bf16 with the
+    attention kernels, remat off; the settings are ``RunConfig`` keywords
+    (the tasks, the optimizer, one epoch, no accumulation)."""
     import dataclasses
 
     from ..config import LilyConfig, lily_base_config
-    if not config_file:
-        return lily_base_config(**overrides)
-    return dataclasses.replace(LilyConfig.from_json_file(config_file), **overrides)
+    spec = RECIPES[name]
+    knobs = dict(compute_dtype="bfloat16", use_attention_kernels=True,
+                 remat=False, **spec["tasks"])
+    cfg = (dataclasses.replace(LilyConfig.from_json_file(config_file), **knobs)
+           if config_file else lily_base_config(**knobs))
+    return cfg, dict(**spec["tasks"], **spec["run"], num_epochs=1,
+                     gradient_accumulation_steps=1)
