@@ -11,9 +11,10 @@ Phases, each fatal on failure:
   2. the build of every CUDA kernel from ``youtube_vln_tpu_torch/ops/csrc``
      (one nvcc per source, all at once, ``-Xptxas -v``): registers, stack
      and spills of every kernel instance, fatal on a spill in a bf16
-     D = 128 instance of B1-B4 or in B6's bf16 instance (D up to 1024);
-     the blocks per SM of B1-B4 (at least 2 in bf16 at D = 128) and B6's
-     layout (at least 2 resident blocks, 32 warps, per SM in bf16);
+     D = 128 instance of B1-B4 (the wgmma instance included) or in B6's
+     bf16 instance (D up to 1024); the blocks per SM of B1-B4 (at least 2
+     in bf16 at D = 128; 1 of 384 threads for the wgmma instance of B3/B4) and
+     B6's layout (at least 2 resident blocks, 32 warps, per SM in bf16);
   3. the forward kernels B1/B2 against their plain PyTorch versions at the
      beam-eval shapes and at odd lengths, in bf16 and f32; then B1-B4 at
      the edges of the kernels' tiling: B*H = 1, S_q and S_kv of 1, 17 and
@@ -47,7 +48,8 @@ Phases, each fatal on failure:
      batch 16 instructions x 6 candidates) at full flagship width and
      depth in bf16 with AdamWRef, 2 warm-up and 5 timed steps; finite
      losses, moved parameters, finite gradients and 6 launches of each of
-     B1-B4 per micro-step; then 3 steps of the same global batch with
+     B1-B4 per micro-step, every B3 and B4 launch on the wgmma route
+     (``attention_bwd_wgmma``); then 3 steps of the same global batch with
      gradient accumulation 2;
   7. the train step's gradients on the kernel path against the plain path
      at batch 1 x 6 (f32 with dropout off and on, and bf16 against f32);
@@ -68,7 +70,8 @@ Phases, each fatal on failure:
      depth in bf16 (AdamWRef, lr 2e-5): 2 warm-up steps, then 5 timed
      steps each with ``use_epilogue_kernels`` on, off, off, on, on
      device-resident batches; 24 launches each of B5/B6 and 6 of B1-B4 per
-     micro-step with the knob on, none of B5/B6 with it off; finite
+     micro-step (B3, B4 on the wgmma route) with the knob on, none of B5/B6
+     with it off; finite
      losses, moved parameters; then 3 steps fed straight from the Loader;
  11. that step's gradients at batch 1 x 7 on the kernel path against the
      plain path (every kernel site on its plain version, same masks): f32
@@ -409,7 +412,12 @@ def ptxas_summary(log):
 
 
 def kernel_instance(mangled):
-    """(kernel name, element type, head dim) of a mangled kernel symbol."""
+    """(kernel name, element type, head dim) of a mangled kernel symbol; the
+    wgmma route's backward (its parameters begin with tensor maps) is
+    ``attention_bwd_kernel (wgmma)``, bf16."""
+    if "attention_bwd_kernel" in mangled and "CUtensorMap" in mangled:
+        m = re.search(r"attention_bwd_kernelILi(\d+)E", mangled)
+        return "attention_bwd_kernel (wgmma)", "bf16", int(m.group(1)) if m else None
     m = re.search(r"((?:attention_fwd|attention_bwd|delta|epilogue_fwd|epilogue_bwd|"
                   r"column_sum|layer_norm_fwd|layer_norm_bwd|layer_norm_param_sum)"
                   r"_kernel)I?(13__nv_bfloat16|f)?(?:Li(\d+)E)?", mangled)
@@ -425,8 +433,9 @@ def build_kernels():
     instance, fatal on any spill in a bf16 D = 128 instance of B1-B4 or in
     B6's bf16 instance; then the blocks per SM of the B1-B4 instances and
     B6's layout (occupancy query), and the LayerNorm backward's resident
-    blocks.  Returns the bf16 numbers of B1-B4 (D = 128), B6 and the
-    LayerNorm kernels by kernels-line name."""
+    blocks.  Returns the bf16 numbers of B1-B4 (D = 128; B3 and B4 those
+    of the wgmma instance they run), B6 and the LayerNorm kernels by
+    kernels-line name."""
     import ctypes
 
     import torch
@@ -468,6 +477,14 @@ def build_kernels():
             occupancy[n] = {"registers": regs.get(kernel),
                             "smem_bytes": smem["bf16 D=128"],
                             "blocks_per_sm": blocks["bf16 D=128"]}
+        if source == "attention_bwd":
+            wgmma = {"registers": regs.get(f"{kernel} (wgmma)"),
+                     "smem_bytes": lib.vln_attention_bwd_wgmma_smem_bytes(),
+                     "blocks_per_sm": lib.vln_attention_bwd_wgmma_blocks_per_sm()}
+            print(f"  {kernel} (wgmma) <bf16, 128>: {wgmma}")
+            if wgmma["blocks_per_sm"] < 1:
+                fail(f"{kernel} (wgmma): {wgmma['blocks_per_sm']} blocks per SM")
+            occupancy["attention_bwd"] = occupancy["bi_attention_bwd"] = wgmma
     # B6: one wave of the resident blocks; the source note of epilogue.cu
     # states 2 blocks of 512 threads (32 warps) per SM in bf16
     layouts = {dt: E._bwd_layout(dt == "bf16", torch.cuda.current_device())
@@ -1240,6 +1257,7 @@ def train_path(seed):
     metrics = [step(batches[i % 2], next_seed()) for i in range(WARMUP_STEPS)]
     ms, peak, launches, timed = run_steps(step, batches, TIMED_STEPS, next_seed)
     check_launches(cfg, launches, TIMED_STEPS, "train path")
+    check_wgmma_launches(cfg, launches, TIMED_STEPS, "train path")
     no_epilogue_launches(launches, "train path")
     losses = [float(m["loss/train"]) for m in metrics + timed]
     print(f"train losses: {losses}")
@@ -1279,6 +1297,7 @@ def train_path(seed):
     step2(split[0], next_seed())
     ms2, peak2, launches2, timed2 = run_steps(step2, split, 3, next_seed)
     check_launches(cfg, launches2, 3 * 2, "train path with accumulation 2")
+    check_wgmma_launches(cfg, launches2, 3 * 2, "train path with accumulation 2")
     losses2 = [float(m["loss/train"]) for m in timed2]
     if not np.isfinite(losses2).all():
         fail("train path with accumulation 2: non-finite loss")
@@ -1537,6 +1556,16 @@ def plain_launchers():
             setattr(mod, name, fn)
 
 
+def check_wgmma_launches(cfg, launches, micro, what):
+    """Every B3 and B4 launch of a bf16 training micro-step (one per vision
+    layer, 808 x 808, and one per connection layer, 60 <-> 808, all at D =
+    128) takes the wgmma route (``ops/attention.py`` ``bwd_route``)."""
+    per = cfg.v_num_hidden_layers + len(cfg.v_biattention_id)
+    if launches["attention_bwd_wgmma"] != per * micro:
+        fail(f"{what}: attention_bwd_wgmma launched {launches['attention_bwd_wgmma']} "
+             f"times, expected {per} x {micro}")
+
+
 def check_pretrain_launches(cfg, launches, micro, what):
     """Per micro-step: 6 launches each of B1-B4 and, with the epilogue knob
     on, one of B5 and B6 at each vision-stream site (the self-attention and
@@ -1650,8 +1679,9 @@ def pretrain_path(seed):
         for knob in (True, False, False, True):
             cfg.use_epilogue_kernels = knob
             ms, peak, launches, timed = run_steps(step, batches, PRE_TIMED, next_seed)
-            check_pretrain_launches(cfg, launches, PRE_TIMED,
-                                    f"pretraining path, epilogue knob {'on' if knob else 'off'}")
+            what = f"pretraining path, epilogue knob {'on' if knob else 'off'}"
+            check_pretrain_launches(cfg, launches, PRE_TIMED, what)
+            check_wgmma_launches(cfg, launches, PRE_TIMED, what)
             runs.append((knob, ms, peak, launches, timed))
         cfg.use_epilogue_kernels = True
         losses = {k: [float(m[k]) for m in warm + [m for r in runs for m in r[4]]]

@@ -114,7 +114,8 @@ def test_cpu_wrappers_launch_nothing():
     (out.sum() + ctx1.sum() + ctx2.sum()).backward()
     assert q.grad is not None
     assert port.LAUNCHES == {"attention_fwd": 0, "bi_attention_fwd": 0,
-                             "attention_bwd": 0, "bi_attention_bwd": 0}
+                             "attention_bwd": 0, "bi_attention_bwd": 0,
+                             "attention_bwd_wgmma": 0}
 
 
 @pytest.mark.parametrize("s_q,s_kv,d", [

@@ -247,6 +247,90 @@ def test_kernel_fragments_hold_whole_groups():
                 assert queries[1] == queries[0] + 8 and keys[0] % 2 == 0
 
 
+def _row_key(r):
+    """attention_bwd.cu wg::row_key: the key (of a warpgroup's 64) that row
+    r of the wgmma route's K and V tiles holds."""
+    return (r & ~15) + 2 * (r & 7) + ((r >> 3) & 1)
+
+
+def test_wgmma_fragments_hold_whole_groups():
+    """The wgmma route's S^T accumulator (m64n64: element n of lane 4g + t
+    of warp w at row 16w + g + 8 ((n >> 1) & 1), column 8 (n >> 2) + 2t +
+    (n & 1)), with K and V rows in row_key order, holds keys 2g and 2g + 1
+    of the warp's 16 and queries i, i + 8 of the same Philox group, and
+    wg::keep_bits puts bit k of group (m, e) on element 8m + e + 2k."""
+    assert sorted(_row_key(r) for r in range(64)) == list(range(64))
+
+    def group(i, j):
+        return ((i >> 4) << 3) | (i & 7), j >> 1
+
+    for warp in range(4):
+        for lane in range(32):
+            g, t = lane // 4, lane % 4
+            for n in range(32):
+                key = _row_key(16 * warp + g + 8 * ((n >> 1) & 1))
+                query = 8 * (n >> 2) + 2 * t + (n & 1)
+                m, e = n >> 3, n & 1
+                i0, j0 = 16 * m + 2 * t + e, 16 * warp + 2 * g
+                assert (query - i0, key - j0) == (8 * ((n >> 2) & 1), (n >> 1) & 1)
+                assert group(query, key) == group(i0, j0)
+                word = 2 * ((query >> 3) & 1) + (key & 1)   # philox.cuh
+                assert n == 8 * m + e + 2 * word
+
+
+@pytest.mark.parametrize("dtype,d,shapes,route", [
+    (torch.bfloat16, 128, [(808, 808)], "wgmma"),           # B3, 30RS and MRT
+    (torch.float32, 128, [(808, 808)], "f32"),              # the parity route
+    (torch.bfloat16, 128, [(60, 808), (808, 60)], "wgmma"),  # B4, measured faster
+    (torch.float32, 128, [(60, 808), (808, 60)], "f32"),
+    (torch.bfloat16, 128, [(128, 1)], "wgmma"),
+    (torch.bfloat16, 128, [(127, 127)], "mma_sync"),        # short on both sides
+    (torch.bfloat16, 128, [(60, 808), (65, 65)], "mma_sync"),
+    (torch.bfloat16, 64, [(808, 808)], "mma_sync"),
+    (torch.float32, 64, [(60, 60)], "f32")])
+def test_bwd_route_by_shape(dtype, d, shapes, route):
+    assert port.bwd_route(dtype, d, shapes) == route
+
+
+def test_wrappers_hand_each_route_its_scratch(monkeypatch):
+    """B3 and B4 on CPU tensors with the launch intercepted: the wgmma
+    route's problems carry their three scratch buffers (sized by 64-row
+    query tiles) and no Delta, the other routes Delta alone; the counter
+    counts the wgmma launches only."""
+    seen = []
+    monkeypatch.setattr(port, "_launch", lambda name, p0, p1, q: seen.append(p0))
+    port.reset_launch_counts()
+
+    def ops(b, s, n, dtype):
+        return [torch.zeros(b, 2, s, 128, dtype=dtype) for _ in range(n)]
+
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v, o, do = ops(1, 808, 5, dtype)
+        lse = torch.zeros(1, 2, 808)
+        port._attention_bwd(q, k, v, torch.zeros(1, 808), o, do, lse, 0.1, 5)
+    wg, f32 = seen
+    assert wg.delta is None and f32.stats is None and f32.delta is not None
+    delta, stats, dq_acc, ready = wg.scratch
+    assert delta is None and f32.scratch[0] is not None
+    tiles = 2 * 13    # b * h * ceil(808 / 64)
+    assert (stats.numel(), dq_acc.numel(), ready.numel()) == (
+        tiles * 128, tiles * 64 * 128, tiles)
+    assert (wg.stats, wg.dq_acc, wg.dq_ready) == tuple(
+        t.data_ptr() for t in (stats, dq_acc, ready))
+    vis, txt = ops(1, 808, 3, torch.bfloat16), ops(1, 60, 3, torch.bfloat16)
+    fwd = (torch.zeros(1, 2, 60, 128, dtype=torch.bfloat16),
+           torch.zeros(1, 2, 808, 128, dtype=torch.bfloat16),
+           torch.zeros(1, 2, 60), torch.zeros(1, 2, 808))
+    port._bi_attention_bwd(*vis, *txt, torch.zeros(1, 808), torch.zeros(1, 60),
+                           *fwd, *ops(1, 60, 1, torch.bfloat16),
+                           *ops(1, 808, 1, torch.bfloat16), 0.1, 0.1, 5)
+    text_queries = seen[-1]      # problem 0: 60 text queries over 808 keys
+    assert text_queries.delta is None and text_queries.scratch[1].numel() == 2 * 128
+    assert port.LAUNCHES["attention_bwd"] == 2
+    assert port.LAUNCHES["bi_attention_bwd"] == 1
+    assert port.LAUNCHES["attention_bwd_wgmma"] == 2
+
+
 @pytest.mark.parametrize("rate", [0.1, 0.5])
 def test_dropout_rate_within_four_sigma(rate):
     keep = philox.dropout_keep(2024, rate, 2, 8, 128, 128)
@@ -292,13 +376,15 @@ def test_site_seeds_differ_and_repeat():
 
 def test_bwd_problem_struct_mirrors_the_c_layout():
     """struct BwdProblem in csrc/attention_bwd.cu: 11 pointers, 24 int64
-    strides, 2 ints, then struct vln_philox::Dropout (36 bytes), padded to
-    the pointers' alignment."""
+    strides, 2 ints, struct vln_philox::Dropout (36 bytes) padded to the
+    pointers' alignment, then the wgmma route's 3 scratch pointers."""
     assert port._BwdProblem.q_sb.offset == 11 * 8
     assert port._BwdProblem.dv_ss.offset == 11 * 8 + 23 * 8
     assert port._BwdProblem.s_q.offset == 280
     assert port._BwdProblem.dropout.offset == 288
-    assert ctypes.sizeof(port._BwdProblem) == 288 + 36 + 4
+    assert port._BwdProblem.stats.offset == 288 + 36 + 4
+    assert port._BwdProblem.dq_ready.offset == 288 + 40 + 2 * 8
+    assert ctypes.sizeof(port._BwdProblem) == 288 + 40 + 3 * 8
 
 
 def test_library_name_covers_shared_headers(tmp_path, monkeypatch):
@@ -308,11 +394,14 @@ def test_library_name_covers_shared_headers(tmp_path, monkeypatch):
     csrc = tmp_path / "csrc"
     shutil.copytree(_build.CSRC, csrc)
     monkeypatch.setattr(_build, "CSRC", csrc)
-    before = {name: _build.library_path(name) for name in _build.SOURCES}
     assert set(_build.SOURCES) == {"attention_fwd", "attention_bwd", "epilogue",
                                   "layer_norm"}
-    with open(csrc / "philox.cuh", "a") as f:
-        f.write("// edited\n")
-    for name in _build.SOURCES:
-        assert _build.library_path(name) != before[name]
+    headers = sorted(h.name for h in csrc.glob("*.cuh"))
+    assert {"philox.cuh", "mma.cuh", "rows.cuh", "hopper.cuh"} <= set(headers)
+    for header in headers:
+        before = {name: _build.library_path(name) for name in _build.SOURCES}
+        with open(csrc / header, "a") as f:
+            f.write("// edited\n")
+        for name in _build.SOURCES:
+            assert _build.library_path(name) != before[name], (header, name)
     assert _build.library_path("attention_fwd").parent == _build.BUILD_DIR

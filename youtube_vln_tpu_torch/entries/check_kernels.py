@@ -21,7 +21,8 @@ autograd Function against itself, in f32 with TF32 off:
                direction and along the gradient (where a replay break costs
                O(rate) of the bound);
   determinism  two launches of each of B1-B6 on the same inputs agree bit
-               for bit;
+               for bit, and two of B3 on its wgmma route (bf16, [2, 2, 256,
+               128]), whose dQ is summed across blocks;
   attribution  the gradient of one flagship sample (7 candidates, 60 + 808
                tokens, ``lily_base_config`` from seed 0, eval mode) at the
                vision layer-0 query weight and the co-attention layer-0
@@ -62,6 +63,9 @@ from ..utils.measure import card
 CHECKS = ("drop", "replay", "determinism", "attribution", "multichip")
 RATE = 0.1
 SEED = 7
+# counters of a route that f32 operands never take: the f32 checks do not
+# expect them to move
+BF16_ROUTES = ("attention_bwd_wgmma",)
 FD_REL_TOL = 2e-2
 ATTR_F32_TOL = 1e-3
 ATTR_BF16_OVER_FLOOR = 2.0
@@ -210,8 +214,17 @@ def determinism(device) -> Dict[str, bool]:
         o = E.fused_dropout_add_ln(*x, dropout_rate=RATE, seed=SEED)
         return torch.autograd.grad(o, x, dout) if backward else (o,)
 
+    # B3's wgmma route: bf16 at head dim 128, at least 128 queries and keys
+    qb, kb, vb, dob = (rand(b_, h_, 256, 128).to(torch.bfloat16) for _ in range(4))
+
+    def attention_wgmma():
+        x = [t.detach().requires_grad_() for t in (qb, kb, vb)]
+        o = A.fused_attention(*x, None, dropout_rate=RATE, seed=SEED)
+        return torch.autograd.grad(o, x, dob)
+
     return {"attention_fwd": _twice(lambda: attention(False)),
             "attention_bwd": _twice(lambda: attention(True)),
+            "attention_bwd_wgmma": _twice(attention_wgmma),
             "bi_attention_fwd": _twice(lambda: bi_attention(False)),
             "bi_attention_bwd": _twice(lambda: bi_attention(True)),
             "epilogue_fwd": _twice(lambda: epilogue(False)),
@@ -398,11 +411,15 @@ def run_checks(device, checks=CHECKS) -> dict:
                     failures.append(f"{key} {out[key]:.4g} above {FD_REL_TOL}: "
                                     "the backward does not replay the mask")
             after = _launches()
-            idle = [k for k in after if after[k] == before[k]]
+            idle = [k for k in after if after[k] == before[k] and k not in BF16_ROUTES]
             if on_card and idle:
                 failures.append(f"replay: {idle} did not launch")
         if "determinism" in checks:
+            before = _launches()
             out["determinism"] = same = determinism(device)
+            idle = [k for k in before if _launches()[k] == before[k]]
+            if on_card and idle:
+                failures.append(f"determinism: {idle} did not launch")
             failures += [f"{k}: two launches differ" for k, ok in same.items() if not ok]
         if "attribution" in checks:
             before = _launches()

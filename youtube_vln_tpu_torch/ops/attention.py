@@ -15,7 +15,8 @@ they lie on a CUDA device; they never fall back from one to the other.
 When autograd records the call, the forward runs inside a
 ``torch.autograd.Function`` (``FusedAttentionFn``, ``FusedBiAttentionFn``)
 whose backward is B3 / B4.  ``LAUNCHES`` counts kernel launches, one per
-wrapper call that launched.
+wrapper call that launched; ``attention_bwd_wgmma`` counts the B3 / B4
+launches that took the wgmma route (``bwd_route``).
 
 Layouts follow the JAX package: q, k, v are ``[B, H, S, D]`` (any strides
 with a contiguous last dim; others are copied with ``.contiguous()``), the
@@ -49,12 +50,32 @@ from .philox import dropout_keep, keep_threshold, seed_key
 
 # kernel launches per wrapper, counted where the kernel is launched
 LAUNCHES = {"attention_fwd": 0, "bi_attention_fwd": 0,
-            "attention_bwd": 0, "bi_attention_bwd": 0}
+            "attention_bwd": 0, "bi_attention_bwd": 0, "attention_bwd_wgmma": 0}
+# the wgmma route's query tile (csrc/attention_bwd.cu, namespace wg), and
+# the longer side a problem needs to take it
+WGMMA_Q_TILE, WGMMA_MIN_LEN = 64, 128
 
 
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def bwd_route(dtype: torch.dtype, head_dim: int, shapes) -> str:
+    """The kernel route of one B3 or B4 launch, by what the launcher sees:
+    ``"f32"`` (the parity instances) for f32 operands; ``"wgmma"`` (the
+    one-pass kernel on wgmma, TMA and warp specialisation) for bf16 at head
+    dim 128 when every problem's (s_q, s_kv) in ``shapes`` has at least
+    ``WGMMA_MIN_LEN`` queries or keys: B3 at 808 x 808 and both directions
+    of B4's 60 <-> 808, where it is the faster kernel (PERF.md section 6);
+    else ``"mma_sync"`` (the two-pass kernel: head dim 64, or short on
+    both sides)."""
+    if dtype != torch.bfloat16:
+        return "f32"
+    if head_dim == 128 and all(max(s_q, s_kv) >= WGMMA_MIN_LEN
+                               for s_q, s_kv in shapes):
+        return "wgmma"
+    return "mma_sync"
 
 
 def use_kernel_for(s_q: int, s_kv: int, d: int) -> bool:
@@ -192,7 +213,9 @@ class _BwdProblem(ctypes.Structure):
                 + [(f"{t}_s{a}", ctypes.c_longlong)
                    for t in TENSORS for a in "bhs"]
                 + [("s_q", ctypes.c_int), ("s_kv", ctypes.c_int),
-                   ("dropout", _Dropout)])
+                   ("dropout", _Dropout)]
+                + [(n, ctypes.c_void_p) for n in ("stats", "dq_acc",
+                                                   "dq_ready")])
 
 
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
@@ -295,16 +318,39 @@ def _problem(q, k, v, bias, out, lse, rate, seed, direction, stream0=0,
                              *_heads(q, head0, heads_total)))
 
 
-def _bwd_problem(q, k, v, bias, o, do, lse, delta, dq, dk, dv, rate, seed,
-                 direction, stream0=0, head0=0, heads_total=0) -> _BwdProblem:
+def _wgmma_scratch(q: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """The wgmma route's scratch for queries q [B, H, S_q, D] (struct
+    BwdProblem), cut from one allocation: LSE and Delta per 64-row query
+    tile, the f32 dQ sums (first, on the allocation's alignment) and their
+    counters; the kernels fill all three."""
+    b, h, s_q, d = q.shape
+    tiles = b * h * -(-s_q // WGMMA_Q_TILE)
+    n_acc, n_stats = tiles * WGMMA_Q_TILE * d, tiles * 2 * WGMMA_Q_TILE
+    buf = torch.empty(n_acc + n_stats + tiles, dtype=torch.float32,
+                      device=q.device)
+    return (buf[n_acc:n_acc + n_stats], buf[:n_acc],
+            buf[n_acc + n_stats:].view(torch.int32))
+
+
+def _bwd_problem(q, k, v, bias, o, do, lse, dq, dk, dv, rate, seed, direction,
+                 stream0=0, head0=0, heads_total=0, wgmma=False) -> _BwdProblem:
+    """One backward problem; its scratch (Delta on the two-pass routes,
+    ``_wgmma_scratch`` on the wgmma route) is allocated here and kept by
+    the returned struct (``scratch``: Delta, stats, dQ sums, counters;
+    None where the route has none)."""
     _check_kv(q, k, v)
     tensors = (q, k, v, o, do, dq, dk, dv)
-    return _BwdProblem(*(t.data_ptr() for t in (q, k, v, bias, o, do, lse,
-                                                 delta, dq, dk, dv)),
-                       *(s for t in tensors for s in t.stride()[:3]),
-                       q.shape[2], k.shape[2],
-                       _dropout(rate, seed, direction, stream0,
-                                *_heads(q, head0, heads_total)))
+    delta = None if wgmma else torch.empty_like(lse)
+    scratch = _wgmma_scratch(q) if wgmma else (None, None, None)
+    p = _BwdProblem(*(None if t is None else t.data_ptr()
+                      for t in (q, k, v, bias, o, do, lse, delta, dq, dk, dv)),
+                    *(s for t in tensors for s in t.stride()[:3]),
+                    q.shape[2], k.shape[2],
+                    _dropout(rate, seed, direction, stream0,
+                             *_heads(q, head0, heads_total)),
+                    *(None if t is None else t.data_ptr() for t in scratch))
+    p.scratch = (delta, *scratch)
+    return p
 
 
 def _launch(name: str, p0, p1, q: torch.Tensor) -> None:
@@ -350,12 +396,14 @@ def _attention_bwd(q, k, v, bias, o, do, lse, rate, seed, stream0=0, head0=0,
     """B3 on CUDA operands: (dq, dk, dv)."""
     do = _operand(do, q)
     dq, dk, dv = _output(q), _output(k), _output(v)
-    delta = torch.empty_like(lse)
+    wgmma = bwd_route(q.dtype, q.shape[-1],
+                      [(q.shape[2], k.shape[2])]) == "wgmma"
     _launch("attention_bwd",
-            _bwd_problem(q, k, v, bias, o, do, lse, delta, dq, dk, dv, rate,
-                         seed, 0, stream0, head0, heads_total),
+            _bwd_problem(q, k, v, bias, o, do, lse, dq, dk, dv, rate, seed, 0,
+                         stream0, head0, heads_total, wgmma),
             _BwdProblem(), q)
     LAUNCHES["attention_bwd"] += 1
+    LAUNCHES["attention_bwd_wgmma"] += wgmma
     return dq, dk, dv
 
 
@@ -447,14 +495,16 @@ def _bi_attention_bwd(q1, k1, v1, q2, k2, v2, vb, tb, ctx1, ctx2, lse1, lse2,
     do1, do2 = _operand(do1, q1), _operand(do2, q1)
     dq1, dk1, dv1 = _output(q1), _output(k1), _output(v1)
     dq2, dk2, dv2 = _output(q2), _output(k2), _output(v2)
-    delta1, delta2 = torch.empty_like(lse1), torch.empty_like(lse2)
     streams = (stream0, head0, heads_total)
+    wgmma = bwd_route(q1.dtype, q1.shape[-1], [(q2.shape[2], k1.shape[2]),
+                                               (q1.shape[2], k2.shape[2])]) == "wgmma"
     _launch("attention_bwd",
-            _bwd_problem(q2, k1, v1, vb, ctx1, do1, lse1, delta1, dq2, dk1,
-                         dv1, rate1, seed, 0, *streams),
-            _bwd_problem(q1, k2, v2, tb, ctx2, do2, lse2, delta2, dq1, dk2,
-                         dv2, rate2, seed, 1, *streams), q1)
+            _bwd_problem(q2, k1, v1, vb, ctx1, do1, lse1, dq2, dk1, dv1, rate1,
+                         seed, 0, *streams, wgmma),
+            _bwd_problem(q1, k2, v2, tb, ctx2, do2, lse2, dq1, dk2, dv2, rate2,
+                         seed, 1, *streams, wgmma), q1)
     LAUNCHES["bi_attention_bwd"] += 1
+    LAUNCHES["attention_bwd_wgmma"] += wgmma
     return dq1, dk1, dv1, dq2, dk2, dv2
 
 
