@@ -1526,13 +1526,13 @@ def plain_launchers():
     from youtube_vln_tpu_torch.ops import epilogue as E
     from youtube_vln_tpu_torch.ops import layer_norm as LN
 
-    def epilogue_fwd(h, res, weight, bias, rate, seed, row0=0):
+    def epilogue_fwd(h, res, weight, bias, rate, seed, row0=0, seed_slot=None):
         d = h.shape[-1]
         h, res = h.reshape(-1, d), res.reshape(-1, d)
         return (E.epilogue_reference(h, res, weight, bias, rate, seed, row0),
                 (h, res, weight))
 
-    def epilogue_bwd(h, res, weight, do, rate, seed, row0=0):
+    def epilogue_bwd(h, res, weight, do, rate, seed, row0=0, seed_slot=None):
         return E.epilogue_bwd_reference(h, res, weight, do.reshape(h.shape), rate, seed,
                                         row0)
 

@@ -179,13 +179,17 @@ def test_output_is_a_merge_heads_view():
 def test_problem_struct_mirrors_the_c_layout():
     """struct Problem in csrc/attention_fwd.cu: 6 pointers, 12 int64
     strides, 2 ints, then struct vln_philox::Dropout of csrc/philox.cuh
-    (4 uint32, a float, an int, the uint32 offset, heads_total and
-    head0), padded to the pointers' alignment."""
-    assert ctypes.sizeof(port._Dropout) == 9 * 4
+    (4 uint32, a float, an int, the uint32 offset, heads_total, head0 and
+    site, then the seed table's pointer: 48 bytes on the pointers'
+    alignment)."""
+    assert ctypes.sizeof(port._Dropout) == 10 * 4 + 8
+    assert ctypes.alignment(port._Dropout) == 8
     assert port._Dropout.offset.offset == 6 * 4
     assert port._Dropout.heads_total.offset == 7 * 4
     assert port._Dropout.head0.offset == 8 * 4
-    assert ctypes.sizeof(port._Problem) == 6 * 8 + 12 * 8 + 2 * 4 + 9 * 4 + 4
+    assert port._Dropout.site.offset == 9 * 4
+    assert port._Dropout.seeds.offset == 10 * 4
+    assert ctypes.sizeof(port._Problem) == 6 * 8 + 12 * 8 + 2 * 4 + 48
     assert port._Problem.q_sb.offset == 48
     assert port._Problem.o_ss.offset == 48 + 11 * 8
     assert port._Problem.s_kv.offset == 148

@@ -376,15 +376,15 @@ def test_site_seeds_differ_and_repeat():
 
 def test_bwd_problem_struct_mirrors_the_c_layout():
     """struct BwdProblem in csrc/attention_bwd.cu: 11 pointers, 24 int64
-    strides, 2 ints, struct vln_philox::Dropout (36 bytes) padded to the
-    pointers' alignment, then the wgmma route's 3 scratch pointers."""
+    strides, 2 ints, struct vln_philox::Dropout (48 bytes, with its seed
+    table's pointer), then the wgmma route's 3 scratch pointers."""
     assert port._BwdProblem.q_sb.offset == 11 * 8
     assert port._BwdProblem.dv_ss.offset == 11 * 8 + 23 * 8
     assert port._BwdProblem.s_q.offset == 280
     assert port._BwdProblem.dropout.offset == 288
-    assert port._BwdProblem.stats.offset == 288 + 36 + 4
-    assert port._BwdProblem.dq_ready.offset == 288 + 40 + 2 * 8
-    assert ctypes.sizeof(port._BwdProblem) == 288 + 40 + 3 * 8
+    assert port._BwdProblem.stats.offset == 288 + 48
+    assert port._BwdProblem.dq_ready.offset == 288 + 48 + 2 * 8
+    assert ctypes.sizeof(port._BwdProblem) == 288 + 48 + 3 * 8
 
 
 def test_library_name_covers_shared_headers(tmp_path, monkeypatch):

@@ -193,12 +193,12 @@ def test_function_runs_the_plain_versions_on_the_cpu():
 
 def test_epilogue_struct_mirrors_the_c_layout():
     """struct Epilogue in csrc/epilogue.cu: 12 pointers, 3 ints, then
-    struct vln_philox::Dropout (36 bytes), which ends on the pointers'
-    alignment."""
+    struct vln_philox::Dropout (48 bytes, with its seed table's pointer)
+    on the pointers' alignment."""
     assert E._Epilogue.n_rows.offset == 12 * 8
     assert E._Epilogue.n_blocks.offset == 12 * 8 + 8
-    assert E._Epilogue.dropout.offset == 12 * 8 + 12
-    assert ctypes.sizeof(E._Epilogue) == 12 * 8 + 12 + 36
+    assert E._Epilogue.dropout.offset == 12 * 8 + 16
+    assert ctypes.sizeof(E._Epilogue) == 12 * 8 + 16 + 48
 
 
 # --------------------------------------------------------------------------- #
@@ -495,13 +495,13 @@ def _counting_launchers(monkeypatch):
     """The launch branches of the epilogue and LayerNorm Functions forced on
     the CPU, each launcher its plain version that counts as the kernel's
     does."""
-    def epi_fwd(h, res, w, b, rate, seed, row0=0):
+    def epi_fwd(h, res, w, b, rate, seed, row0=0, seed_slot=None):
         E.LAUNCHES["epilogue_fwd"] += 1
         d = h.shape[-1]
         h, res = h.reshape(-1, d), res.reshape(-1, d)
         return E.epilogue_reference(h, res, w, b, rate, seed, row0), (h, res, w)
 
-    def epi_bwd(h, res, w, do, rate, seed, row0=0):
+    def epi_bwd(h, res, w, do, rate, seed, row0=0, seed_slot=None):
         E.LAUNCHES["epilogue_bwd"] += 1
         return E.epilogue_bwd_reference(h, res, w, do.reshape(h.shape), rate,
                                         seed, row0)

@@ -283,7 +283,8 @@ def rel_l2(got, want) -> float:
                for a, b in zip(got, want))
 
 
-def _plain_attention_fwd(q, k, v, bias, rate, seed, want_lse, *streams):
+def _plain_attention_fwd(q, k, v, bias, rate, seed, want_lse, *streams,
+                         seed_slot=None):
     q = A._operand(q, q)
     k, v = A._operand(k, q), A._operand(v, q)
     bias = A._key_bias(bias, q.shape[0], k.shape[2], q.device)
@@ -292,12 +293,13 @@ def _plain_attention_fwd(q, k, v, bias, rate, seed, want_lse, *streams):
             (q, k, v, bias))
 
 
-def _plain_attention_bwd(q, k, v, bias, o, do, lse, rate, seed, *streams):
+def _plain_attention_bwd(q, k, v, bias, o, do, lse, rate, seed, *streams,
+                         seed_slot=None):
     return A.attention_bwd_reference(q, k, v, bias, do, rate, seed, 0, *streams)
 
 
 def _plain_bi_attention_fwd(q1, k1, v1, q2, k2, v2, v_bias, t_bias, rate1, rate2,
-                            seed, want_lse, *streams):
+                            seed, want_lse, *streams, seed_slot=None):
     q1 = A._operand(q1, q1)
     k1, v1, q2, k2, v2 = (A._operand(x, q1) for x in (k1, v1, q2, k2, v2))
     vb = A._key_bias(v_bias, q1.shape[0], k1.shape[2], q1.device)
@@ -311,7 +313,8 @@ def _plain_bi_attention_fwd(q1, k1, v1, q2, k2, v2, v_bias, t_bias, rate1, rate2
 
 
 def _plain_bi_attention_bwd(q1, k1, v1, q2, k2, v2, vb, tb, ctx1, ctx2, lse1, lse2,
-                            do1, do2, rate1, rate2, seed, *streams):
+                            do1, do2, rate1, rate2, seed, *streams,
+                            seed_slot=None):
     return A.bi_attention_bwd_reference(q1, k1, v1, q2, k2, v2, vb, tb, do1, do2,
                                         rate1, rate2, seed, *streams)
 

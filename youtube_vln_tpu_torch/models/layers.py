@@ -52,6 +52,7 @@ model rank.
 from __future__ import annotations
 
 import math
+from typing import List, Optional
 
 import torch
 import torch.nn.functional as F
@@ -87,21 +88,52 @@ class DropoutRng:
     the JAX package's batch-sharded row ids).  The generator of the other
     sites is seeded from ``site_seed(site_seed(seed, 0), rank)`` on a
     rank above 0, so data ranks draw independent bits there and model
-    ranks the same."""
+    ranks the same.
 
-    def __init__(self, seed: int, device, rank: int = 0):
+    A caller that replays the forward as a CUDA graph (the train step's,
+    ``parallel/train_step.py``) hands in its own ``generator``, which is
+    re-seeded here as a new one would be, and a ``seed_table``, an int64
+    device tensor: the kernel site n then reads its seed from entry n - 1
+    (``seed_slot``), which the caller fills with ``seed_table_of`` before
+    each replay."""
+
+    def __init__(self, seed: int, device, rank: int = 0,
+                 generator: Optional[torch.Generator] = None,
+                 seed_table: Optional[torch.Tensor] = None):
         self.seed = seed & MASK64
         self.rank = rank
         self.sites = 0
-        self.generator = torch.Generator(device=device)
-        generator_seed = site_seed(self.seed, 0)
-        if rank:
-            generator_seed = site_seed(generator_seed, rank)
-        self.generator.manual_seed(generator_seed)
+        self.seed_table = seed_table
+        self.generator = (torch.Generator(device=device) if generator is None
+                          else generator)
+        self.generator.manual_seed(self.generator_seed(self.seed, rank))
+
+    @staticmethod
+    def generator_seed(seed: int, rank: int = 0) -> int:
+        """The seed of the generator of the non-kernel sites."""
+        out = site_seed(seed & MASK64, 0)
+        return site_seed(out, rank) if rank else out
+
+    @staticmethod
+    def seed_table_of(seed: int, sites: int) -> List[int]:
+        """The seeds of kernel sites 1 .. ``sites`` under the step seed
+        ``seed``, as int64 bit patterns: what ``kernel_seed`` returns call
+        after call, whatever the rank."""
+        seed &= MASK64
+        out = [site_seed(seed, n) for n in range(1, sites + 1)]
+        return [s - (1 << 64) if s >> 63 else s for s in out]
 
     def kernel_seed(self) -> int:
         self.sites += 1
         return site_seed(self.seed, self.sites)
+
+    def seed_slot(self):
+        """Where the kernels read the seed of the last ``kernel_seed``'s
+        site on the device, (table, index), or None: they take it by
+        value."""
+        if self.seed_table is None:
+            return None
+        return self.seed_table, self.sites - 1
 
     def offset(self, rows: int) -> int:
         """The first global stream (attention) or row (epilogue) of a
@@ -145,7 +177,8 @@ def dropout_add_ln(h, res, ln: "LayerNorm", rate: float, rng, cfg):
                                                  True)):
         return epilogue.fused_dropout_add_ln(
             h, res, ln.weight, ln.bias, dropout_rate=rate,
-            seed=rng.kernel_seed(), row0=rng.offset(h.numel() // h.shape[-1]))
+            seed=rng.kernel_seed(), row0=rng.offset(h.numel() // h.shape[-1]),
+            seed_slot=rng.seed_slot())
     return ln(dropout(h, rate, rng) + res)
 
 
@@ -257,13 +290,16 @@ class SelfAttentionHeads(nn.Module):
                    for proj in (self.query, self.key, self.value))
         rate = 0.0 if rng is None else self.dropout_rate
         if use_kernel_for(q.shape[2], k.shape[2], q.shape[3]):
-            seed, stream0 = ((0, 0) if rng is None else
-                             (rng.kernel_seed(), rng.offset(q.shape[0] * self.num_heads)))
-            attend = (fused_attention if self.cfg.use_attention_kernels
-                      else attention_reference)
-            ctx = attend(q, k, v, key_bias, dropout_rate=rate, seed=seed,
-                         stream0=stream0, head0=cover.head0,
-                         heads_total=self.num_heads)
+            seed, stream0, slot = (
+                (0, 0, None) if rng is None else
+                (rng.kernel_seed(), rng.offset(q.shape[0] * self.num_heads),
+                 rng.seed_slot()))
+            kw = dict(dropout_rate=rate, seed=seed, stream0=stream0,
+                      head0=cover.head0, heads_total=self.num_heads)
+            if self.cfg.use_attention_kernels:
+                ctx = fused_attention(q, k, v, key_bias, seed_slot=slot, **kw)
+            else:
+                ctx = attention_reference(q, k, v, key_bias, **kw)
         else:
             ctx = attention_core(q, k, v, key_bias, rate, rng,
                                  (cover.head0, self.num_heads))

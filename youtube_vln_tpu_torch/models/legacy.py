@@ -97,6 +97,8 @@ class _LegacyModel(nn.Module):
         if seed is None:
             raise ValueError("train mode needs a dropout seed: pass seed=, or "
                              "call .eval()")
+        if isinstance(seed, DropoutRng):
+            return seed
         return DropoutRng(seed, device, rank)
 
     @torch.no_grad()

@@ -187,14 +187,18 @@ class BiAttention(nn.Module):
                          cfg.attention_probs_dropout_prob))
         if use_kernel_for(q2.shape[2], k1.shape[2], q1.shape[3]):
             # both directions in ONE kernel launch (or its plain version)
-            seed, stream0 = ((0, 0) if rng is None else
-                             (rng.kernel_seed(), rng.offset(q1.shape[0] * total)))
-            attend = (fused_bi_attention if cfg.use_attention_kernels
-                      else bi_attention_reference)
-            ctx1, ctx2 = attend(q1, k1, v1, q2, k2, v2, v_bias, t_bias,
-                                rate1=rate1, rate2=rate2, seed=seed,
-                                stream0=stream0, head0=cover.head0,
-                                heads_total=total)
+            seed, stream0, slot = (
+                (0, 0, None) if rng is None else
+                (rng.kernel_seed(), rng.offset(q1.shape[0] * total),
+                 rng.seed_slot()))
+            kw = dict(rate1=rate1, rate2=rate2, seed=seed, stream0=stream0,
+                      head0=cover.head0, heads_total=total)
+            if cfg.use_attention_kernels:
+                ctx1, ctx2 = fused_bi_attention(q1, k1, v1, q2, k2, v2, v_bias,
+                                                t_bias, seed_slot=slot, **kw)
+            else:
+                ctx1, ctx2 = bi_attention_reference(q1, k1, v1, q2, k2, v2,
+                                                    v_bias, t_bias, **kw)
         else:
             ours = (cover.head0, total)
             ctx1 = attention_core(q2, k1, v1, v_bias, rate1, rng, ours)  # text -> vision
@@ -472,7 +476,10 @@ class Lily(nn.Module):
     masked-prediction heads to those rows.  In train mode (``.train()``)
     dropout is on and ``seed``, the forward's 64-bit dropout seed, is
     required, and ``rank`` is the process's data coordinate, its place on
-    the data axis (``DropoutRng``); eval mode ignores both.  ``shard`` is
+    the data axis (``DropoutRng``); eval mode ignores both.  ``seed`` may
+    also be a ``DropoutRng`` the caller built (the graphed train step's,
+    with its own generator and seed table), which the forward then draws
+    from, ``rank`` unread.  ``shard`` is
     the model axis (``parallel/tensor.py``): this process holds its shard
     of the weights, whose full names and shapes ``state_dict`` keys
     (``models/weights.py:shard_state_dict``).  The weights are
@@ -534,7 +541,8 @@ class Lily(nn.Module):
             if seed is None:
                 raise ValueError("train mode needs a dropout seed: pass "
                                  "seed=, or call .eval()")
-            rng = DropoutRng(seed, instr_tokens.device, rank)
+            rng = (seed if isinstance(seed, DropoutRng)
+                   else DropoutRng(seed, instr_tokens.device, rank))
         cfg = self.cfg
         seq_t, seq_v, pooled_t, pooled_v = self.bert(
             instr_tokens, image_features, image_locations, token_type_ids,

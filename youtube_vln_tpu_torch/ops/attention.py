@@ -51,6 +51,9 @@ from .philox import dropout_keep, keep_threshold, seed_key
 # kernel launches per wrapper, counted where the kernel is launched
 LAUNCHES = {"attention_fwd": 0, "bi_attention_fwd": 0,
             "attention_bwd": 0, "bi_attention_bwd": 0, "attention_bwd_wgmma": 0}
+# (table, index): a launch reads its seed from table[index] on the device,
+# a contiguous int64 CUDA tensor of 64-bit seeds (``_dropout``)
+SeedSlot = Tuple[torch.Tensor, int]
 # the wgmma route's query tile (csrc/attention_bwd.cu, namespace wg), and
 # the longer side a problem needs to take it
 WGMMA_Q_TILE, WGMMA_MIN_LEN = 64, 128
@@ -191,7 +194,8 @@ class _Dropout(ctypes.Structure):
                  ("seed_lo", "seed_hi", "threshold", "direction")]
                 + [("keep_scale", ctypes.c_float), ("enabled", ctypes.c_int)]
                 + [(n, ctypes.c_uint32) for n in ("offset", "heads_total",
-                                                  "head0")])
+                                                  "head0", "site")]
+                + [("seeds", ctypes.c_void_p)])
 
 
 class _Problem(ctypes.Structure):
@@ -276,19 +280,33 @@ def _output(q: torch.Tensor) -> torch.Tensor:
 
 
 def _dropout(rate: float, seed: int, direction: int, offset: int = 0,
-             heads_total: int = 0, head0: int = 0) -> _Dropout:
+             heads_total: int = 0, head0: int = 0,
+             seed_slot: Optional[SeedSlot] = None) -> _Dropout:
     """The Dropout settings of a launch; ``offset`` is its first global
     stream (B1-B4) or row (B5/B6), ``heads_total`` and ``head0`` the
-    problem's heads and the launch's first (B1-B4)."""
+    problem's heads and the launch's first (B1-B4).  ``seed_slot`` (table,
+    index) makes the kernel read its seed from ``table[index]`` on the
+    device when it runs (an int64 CUDA tensor holding 64-bit seeds) instead
+    of ``seed``; without it the struct is the by-value one, pointer null."""
     _check_rate(rate)
     for name, x in (("offset", offset), ("heads_total", heads_total),
                     ("head0", head0)):
         if not 0 <= x < 2 ** 32:
             raise ValueError(f"dropout {name} {x} outside [0, 2^32)")
     lo, hi = seed_key(seed)
+    site, seeds = 0, None
+    if seed_slot is not None:
+        table, site = seed_slot
+        if (table.dtype != torch.int64 or table.dim() != 1
+                or not 0 <= site < table.numel()):
+            raise ValueError(f"seed slot {site} of a {table.dtype} table of "
+                             f"shape {tuple(table.shape)}")
+        if not table.is_contiguous():
+            raise ValueError("the seed table must be contiguous")
+        seeds = table.data_ptr()
     return _Dropout(lo, hi, keep_threshold(rate), direction,
                     1.0 / (1.0 - rate), int(rate > 0.0), offset, heads_total,
-                    head0)
+                    head0, site, seeds)
 
 
 def _heads(q: torch.Tensor, head0: int, heads_total: int) -> Tuple[int, int]:
@@ -308,14 +326,14 @@ def _check_kv(q, k, v):
 
 
 def _problem(q, k, v, bias, out, lse, rate, seed, direction, stream0=0,
-             head0=0, heads_total=0) -> _Problem:
+             head0=0, heads_total=0, seed_slot=None) -> _Problem:
     _check_kv(q, k, v)
     return _Problem(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
                     out.data_ptr(), 0 if lse is None else lse.data_ptr(),
                     *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                     *out.stride()[:3], q.shape[2], k.shape[2],
                     _dropout(rate, seed, direction, stream0,
-                             *_heads(q, head0, heads_total)))
+                             *_heads(q, head0, heads_total), seed_slot))
 
 
 def _wgmma_scratch(q: torch.Tensor) -> Tuple[torch.Tensor, ...]:
@@ -333,7 +351,8 @@ def _wgmma_scratch(q: torch.Tensor) -> Tuple[torch.Tensor, ...]:
 
 
 def _bwd_problem(q, k, v, bias, o, do, lse, dq, dk, dv, rate, seed, direction,
-                 stream0=0, head0=0, heads_total=0, wgmma=False) -> _BwdProblem:
+                 stream0=0, head0=0, heads_total=0, wgmma=False,
+                 seed_slot=None) -> _BwdProblem:
     """One backward problem; its scratch (Delta on the two-pass routes,
     ``_wgmma_scratch`` on the wgmma route) is allocated here and kept by
     the returned struct (``scratch``: Delta, stats, dQ sums, counters;
@@ -347,7 +366,7 @@ def _bwd_problem(q, k, v, bias, o, do, lse, dq, dk, dv, rate, seed, direction,
                     *(s for t in tensors for s in t.stride()[:3]),
                     q.shape[2], k.shape[2],
                     _dropout(rate, seed, direction, stream0,
-                             *_heads(q, head0, heads_total)),
+                             *_heads(q, head0, heads_total), seed_slot),
                     *(None if t is None else t.data_ptr() for t in scratch))
     p.scratch = (delta, *scratch)
     return p
@@ -377,7 +396,7 @@ def _lse(q: torch.Tensor) -> torch.Tensor:
 # B1 / B3
 # --------------------------------------------------------------------------- #
 def _attention_fwd(q, k, v, bias, rate, seed, want_lse, stream0=0, head0=0,
-                   heads_total=0):
+                   heads_total=0, seed_slot=None):
     """B1 on CUDA operands: (out, lse or None, the operands as read)."""
     q = _operand(q, q)
     k, v = _operand(k, q), _operand(v, q)
@@ -386,13 +405,13 @@ def _attention_fwd(q, k, v, bias, rate, seed, want_lse, stream0=0, head0=0,
     lse = _lse(q) if want_lse else None
     _launch("attention_fwd",
             _problem(q, k, v, bias, out, lse, rate, seed, 0, stream0, head0,
-                     heads_total), _Problem(), q)
+                     heads_total, seed_slot), _Problem(), q)
     LAUNCHES["attention_fwd"] += 1
     return out, lse, (q, k, v, bias)
 
 
 def _attention_bwd(q, k, v, bias, o, do, lse, rate, seed, stream0=0, head0=0,
-                   heads_total=0):
+                   heads_total=0, seed_slot=None):
     """B3 on CUDA operands: (dq, dk, dv)."""
     do = _operand(do, q)
     dq, dk, dv = _output(q), _output(k), _output(v)
@@ -400,7 +419,7 @@ def _attention_bwd(q, k, v, bias, o, do, lse, rate, seed, stream0=0, head0=0,
                       [(q.shape[2], k.shape[2])]) == "wgmma"
     _launch("attention_bwd",
             _bwd_problem(q, k, v, bias, o, do, lse, dq, dk, dv, rate, seed, 0,
-                         stream0, head0, heads_total, wgmma),
+                         stream0, head0, heads_total, wgmma, seed_slot),
             _BwdProblem(), q)
     LAUNCHES["attention_bwd"] += 1
     LAUNCHES["attention_bwd_wgmma"] += wgmma
@@ -409,11 +428,14 @@ def _attention_bwd(q, k, v, bias, o, do, lse, rate, seed, stream0=0, head0=0,
 
 class FusedAttentionFn(torch.autograd.Function):
     """B1 forward, B3 backward (plain versions for CPU tensors);
-    ``streams`` is (stream0, head0, heads_total)."""
+    ``streams`` is (stream0, head0, heads_total), ``seed_slot`` where the
+    kernels read the seed (``_dropout``; the plain versions take ``seed``)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, key_bias, dropout_rate, seed, streams):
+    def forward(ctx, q, k, v, key_bias, dropout_rate, seed, streams,
+                seed_slot=None):
         ctx.rate, ctx.seed, ctx.streams = dropout_rate, seed, streams
+        ctx.seed_slot = seed_slot
         if _on_cpu(q, k, v, key_bias):
             ctx.on_cpu = True
             ctx.save_for_backward(q, k, v, key_bias)
@@ -422,7 +444,7 @@ class FusedAttentionFn(torch.autograd.Function):
         ctx.on_cpu = False
         out, lse, (q, k, v, bias) = _attention_fwd(q, k, v, key_bias,
                                                    dropout_rate, seed, True,
-                                                   *streams)
+                                                   *streams, seed_slot=seed_slot)
         ctx.save_for_backward(q, k, v, bias, out, lse)
         return out
 
@@ -437,8 +459,9 @@ class FusedAttentionFn(torch.autograd.Function):
             # saved tensor a single time
             q, k, v, bias, out, lse = ctx.saved_tensors
             grads = _attention_bwd(q, k, v, bias, out, do, lse, ctx.rate,
-                                   ctx.seed, *ctx.streams)
-        return (*grads, None, None, None, None)
+                                   ctx.seed, *ctx.streams,
+                                   seed_slot=ctx.seed_slot)
+        return (*grads, None, None, None, None, None)
 
 
 def _records_grad(*tensors) -> bool:
@@ -447,31 +470,34 @@ def _records_grad(*tensors) -> bool:
 
 def fused_attention(q, k, v, key_bias=None, *, dropout_rate: float = 0.0,
                     seed: int = 0, stream0: int = 0, head0: int = 0,
-                    heads_total: int = 0):
+                    heads_total: int = 0, seed_slot: Optional[SeedSlot] = None):
     """B1: dropout(softmax(q k^T / sqrt(D) + key_bias)) v per (batch, head);
     its gradient is B3.
 
     q: [B, H, S_q, D]; k, v: [B, H, S_kv, D]; key_bias: [B, S_kv] f32 or
     None; ``seed`` is the call's 64-bit dropout seed, ``stream0`` its first
     global stream (0 in one process) and ``head0`` / ``heads_total`` its
-    first head of the problem's (0 / 0: the call holds every head).
-    Returns [B, H, S_q, D] in q's dtype."""
+    first head of the problem's (0 / 0: the call holds every head);
+    ``seed_slot`` (table, index), where given, is where the kernels read
+    the seed on the device instead (``_dropout``).  Returns [B, H, S_q, D]
+    in q's dtype."""
     streams = (int(stream0), int(head0), int(heads_total))
     if _records_grad(q, k, v):
         return FusedAttentionFn.apply(q, k, v, key_bias, float(dropout_rate),
-                                      int(seed), streams)
+                                      int(seed), streams, seed_slot)
     if _on_cpu(q, k, v, key_bias):
         return attention_reference(q, k, v, key_bias, dropout_rate, seed, 0,
                                    *streams)
     return _attention_fwd(q, k, v, key_bias, dropout_rate, seed, False,
-                          *streams)[0]
+                          *streams, seed_slot=seed_slot)[0]
 
 
 # --------------------------------------------------------------------------- #
 # B2 / B4
 # --------------------------------------------------------------------------- #
 def _bi_attention_fwd(q1, k1, v1, q2, k2, v2, v_bias, t_bias, rate1, rate2,
-                      seed, want_lse, stream0=0, head0=0, heads_total=0):
+                      seed, want_lse, stream0=0, head0=0, heads_total=0,
+                      seed_slot=None):
     """B2 on CUDA operands: (ctx1, ctx2, lse1, lse2, operands as read)."""
     q1 = _operand(q1, q1)
     k1, v1, q2, k2, v2 = (_operand(x, q1) for x in (k1, v1, q2, k2, v2))
@@ -482,15 +508,17 @@ def _bi_attention_fwd(q1, k1, v1, q2, k2, v2, v_bias, t_bias, rate1, rate2,
     lse1, lse2 = (_lse(q2), _lse(q1)) if want_lse else (None, None)
     streams = (stream0, head0, heads_total)
     _launch("attention_fwd",
-            _problem(q2, k1, v1, vb, ctx1, lse1, rate1, seed, 0, *streams),
-            _problem(q1, k2, v2, tb, ctx2, lse2, rate2, seed, 1, *streams), q1)
+            _problem(q2, k1, v1, vb, ctx1, lse1, rate1, seed, 0, *streams,
+                     seed_slot),
+            _problem(q1, k2, v2, tb, ctx2, lse2, rate2, seed, 1, *streams,
+                     seed_slot), q1)
     LAUNCHES["bi_attention_fwd"] += 1
     return ctx1, ctx2, lse1, lse2, (q1, k1, v1, q2, k2, v2, vb, tb)
 
 
 def _bi_attention_bwd(q1, k1, v1, q2, k2, v2, vb, tb, ctx1, ctx2, lse1, lse2,
                       do1, do2, rate1, rate2, seed, stream0=0, head0=0,
-                      heads_total=0):
+                      heads_total=0, seed_slot=None):
     """B4 on CUDA operands: (dq1, dk1, dv1, dq2, dk2, dv2)."""
     do1, do2 = _operand(do1, q1), _operand(do2, q1)
     dq1, dk1, dv1 = _output(q1), _output(k1), _output(v1)
@@ -500,9 +528,9 @@ def _bi_attention_bwd(q1, k1, v1, q2, k2, v2, vb, tb, ctx1, ctx2, lse1, lse2,
                                                (q1.shape[2], k2.shape[2])]) == "wgmma"
     _launch("attention_bwd",
             _bwd_problem(q2, k1, v1, vb, ctx1, do1, lse1, dq2, dk1, dv1, rate1,
-                         seed, 0, *streams, wgmma),
+                         seed, 0, *streams, wgmma, seed_slot),
             _bwd_problem(q1, k2, v2, tb, ctx2, do2, lse2, dq1, dk2, dv2, rate2,
-                         seed, 1, *streams, wgmma), q1)
+                         seed, 1, *streams, wgmma, seed_slot), q1)
     LAUNCHES["bi_attention_bwd"] += 1
     LAUNCHES["attention_bwd_wgmma"] += wgmma
     return dq1, dk1, dv1, dq2, dk2, dv2
@@ -510,12 +538,13 @@ def _bi_attention_bwd(q1, k1, v1, q2, k2, v2, vb, tb, ctx1, ctx2, lse1, lse2,
 
 class FusedBiAttentionFn(torch.autograd.Function):
     """B2 forward, B4 backward (plain versions for CPU tensors);
-    ``streams`` is (stream0, head0, heads_total)."""
+    ``streams`` and ``seed_slot`` as ``FusedAttentionFn``'s."""
 
     @staticmethod
     def forward(ctx, q1, k1, v1, q2, k2, v2, v_bias, t_bias, rate1, rate2,
-                seed, streams):
+                seed, streams, seed_slot=None):
         ctx.rates, ctx.seed, ctx.streams = (rate1, rate2), seed, streams
+        ctx.seed_slot = seed_slot
         if _on_cpu(q1, k1, v1, q2, k2, v2, v_bias, t_bias):
             ctx.on_cpu = True
             ctx.save_for_backward(q1, k1, v1, q2, k2, v2, v_bias, t_bias)
@@ -524,7 +553,7 @@ class FusedBiAttentionFn(torch.autograd.Function):
         ctx.on_cpu = False
         ctx1, ctx2, lse1, lse2, ops = _bi_attention_fwd(
             q1, k1, v1, q2, k2, v2, v_bias, t_bias, rate1, rate2, seed, True,
-            *streams)
+            *streams, seed_slot=seed_slot)
         ctx.save_for_backward(*ops, ctx1, ctx2, lse1, lse2)
         return ctx1, ctx2
 
@@ -536,13 +565,15 @@ class FusedBiAttentionFn(torch.autograd.Function):
                                                *ctx.streams)
         else:
             grads = _bi_attention_bwd(*ctx.saved_tensors, do1, do2,
-                                      *ctx.rates, ctx.seed, *ctx.streams)
-        return (*grads, None, None, None, None, None, None)
+                                      *ctx.rates, ctx.seed, *ctx.streams,
+                                      seed_slot=ctx.seed_slot)
+        return (*grads, None, None, None, None, None, None, None)
 
 
 def fused_bi_attention(q1, k1, v1, q2, k2, v2, v_bias=None, t_bias=None, *,
                        rate1: float = 0.0, rate2: float = 0.0, seed: int = 0,
-                       stream0: int = 0, head0: int = 0, heads_total: int = 0
+                       stream0: int = 0, head0: int = 0, heads_total: int = 0,
+                       seed_slot: Optional[SeedSlot] = None
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """B2: both directions of co-attention in one launch; its gradient is
     B4 (one launch for both directions).
@@ -553,14 +584,15 @@ def fused_bi_attention(q1, k1, v1, q2, k2, v2, v_bias=None, t_bias=None, *,
     ``v_attention_probs_dropout_prob``), and vision queries over text keys
     (rate2, ``attention_probs_dropout_prob``), both masks from ``seed`` from
     the first global stream ``stream0`` on heads [head0, head0 + H) of
-    ``heads_total`` (0: the call holds every head)."""
+    ``heads_total`` (0: the call holds every head); ``seed_slot`` as
+    ``fused_attention``'s."""
     streams = (int(stream0), int(head0), int(heads_total))
     if _records_grad(q1, k1, v1, q2, k2, v2):
         return FusedBiAttentionFn.apply(q1, k1, v1, q2, k2, v2, v_bias, t_bias,
                                         float(rate1), float(rate2), int(seed),
-                                        streams)
+                                        streams, seed_slot)
     if _on_cpu(q1, k1, v1, q2, k2, v2, v_bias, t_bias):
         return bi_attention_reference(q1, k1, v1, q2, k2, v2, v_bias, t_bias,
                                       rate1, rate2, seed, *streams)
     return _bi_attention_fwd(q1, k1, v1, q2, k2, v2, v_bias, t_bias, rate1,
-                             rate2, seed, False, *streams)[:2]
+                             rate2, seed, False, *streams, seed_slot=seed_slot)[:2]

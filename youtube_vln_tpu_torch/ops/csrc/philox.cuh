@@ -35,6 +35,13 @@
 // Philox call serves four neighbouring columns.  Direction 2 keeps these
 // counters apart from the attention ones (directions 0 and 1).
 //
+// The key is the launch's 64-bit seed: by value (seed_lo, seed_hi), or,
+// where Dropout::seeds is set, entry Dropout::site of that device table of
+// seeds, read when the kernel runs.  A launch captured in a CUDA graph so
+// draws each replay's own masks from a table the host rewrites before the
+// replay (parallel/train_step.py); the counters, threshold and scale are
+// the same on both paths.
+//
 // ops/philox.py computes both functions in plain torch, so a kernel and its
 // plain version drop the same entries.
 #pragma once
@@ -75,7 +82,18 @@ struct Dropout {
                        // launch: rank * (its streams or rows) under DDP
   uint32_t heads_total;  // B1-B4: heads of the whole problem
   uint32_t head0;        // B1-B4: first head of the launch's shard
+  uint32_t site;         // the launch's entry of ``seeds``
+  const unsigned long long* seeds;  // device table of 64-bit seeds, or null:
+                                    // the key is (seed_lo, seed_hi)
 };
+
+// The Philox key (lo, hi) of a launch: its table entry where it has a
+// table, else its by-value seed.
+__device__ __forceinline__ uint2 key_of(const Dropout& d) {
+  if (d.seeds == nullptr) return make_uint2(d.seed_lo, d.seed_hi);
+  const unsigned long long s = __ldg(d.seeds + d.site);
+  return make_uint2((uint32_t)s, (uint32_t)(s >> 32));
+}
 
 // The global stream of block bh of a launch with ``heads`` heads per row,
 // computed once per block.
@@ -96,8 +114,9 @@ __device__ __forceinline__ uint32_t kept4(uint4 w, uint32_t threshold) {
 // (i0 + 8, j0), bit 3 (i0 + 8, j0 + 1).
 __device__ __forceinline__ uint32_t keep_group(const Dropout& d, uint32_t stream,
                                                uint32_t i, uint32_t j) {
+  const uint2 k = key_of(d);
   return kept4(philox4(((i >> 4) << 3) | (i & 7u), j >> 1, stream,
-                       d.direction, d.seed_lo, d.seed_hi), d.threshold);
+                       d.direction, k.x, k.y), d.threshold);
 }
 
 // The keep bit of one attention entry (the f32 parity kernels).
@@ -110,8 +129,9 @@ __device__ __forceinline__ bool keep(const Dropout& d, uint32_t stream,
 // bit c for column 4*group + c.
 __device__ __forceinline__ uint32_t keep4(const Dropout& d, uint32_t row,
                                           uint32_t group) {
-  return kept4(philox4(d.offset + row, group, 0u, EPILOGUE_DIRECTION,
-                       d.seed_lo, d.seed_hi), d.threshold);
+  const uint2 k = key_of(d);
+  return kept4(philox4(d.offset + row, group, 0u, EPILOGUE_DIRECTION, k.x, k.y),
+               d.threshold);
 }
 
 }  // namespace vln_philox

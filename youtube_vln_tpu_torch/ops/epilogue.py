@@ -31,13 +31,14 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Optional
 
 import torch
 
 from . import _rowwise
 from ._rowwise import param as _param
 from ._rowwise import rows as _rows
-from .attention import _Dropout, _dropout, _on_cpu, _records_grad
+from .attention import SeedSlot, _Dropout, _dropout, _on_cpu, _records_grad
 from .layer_norm import layer_norm_grads, layer_norm_reference, normalise
 from .philox import EPILOGUE_DIRECTION, epilogue_keep
 
@@ -153,7 +154,7 @@ def _check_kernel_operands(h, res, weight, *params):
                              f"got {tuple(p.shape)} {p.dtype}")
 
 
-def _epilogue_fwd(h, res, weight, bias, rate, seed, row0=0):
+def _epilogue_fwd(h, res, weight, bias, rate, seed, row0=0, seed_slot=None):
     """B5 on CUDA operands: (out [N, D], the operands as read)."""
     _check_kernel_operands(h, res, weight, bias)
     d = h.shape[-1]
@@ -161,7 +162,8 @@ def _epilogue_fwd(h, res, weight, bias, rate, seed, row0=0):
     out = torch.empty_like(h)
     problem = _Epilogue(h=h.data_ptr(), res=res.data_ptr(), w=weight.data_ptr(),
                         b=bias.data_ptr(), out=out.data_ptr(), n_rows=h.shape[0],
-                        d=d, dropout=_dropout(rate, seed, EPILOGUE_DIRECTION, row0))
+                        d=d, dropout=_dropout(rate, seed, EPILOGUE_DIRECTION, row0,
+                                              seed_slot=seed_slot))
     _rowwise.launch("epilogue", "epilogue_fwd", problem, h)
     LAUNCHES["epilogue_fwd"] += 1
     return out, (h, res, weight)
@@ -191,7 +193,7 @@ def _bwd_blocks(n_rows: int, rows_per_block: int, blocks_per_sm: int,
                              "epilogue backward kernel")
 
 
-def _epilogue_bwd(h, res, weight, do, rate, seed, row0=0):
+def _epilogue_bwd(h, res, weight, do, rate, seed, row0=0, seed_slot=None):
     """B6 on CUDA operands (as ``_epilogue_fwd`` read them): (dh, dres, dw,
     db); dh/dres [N, D] in h's dtype, dw/db [D] f32."""
     n, d = h.shape
@@ -207,25 +209,29 @@ def _epilogue_bwd(h, res, weight, do, rate, seed, row0=0):
                         dw_part=parts[0].data_ptr(), db_part=parts[1].data_ptr(),
                         dw=dw_db[0].data_ptr(), db=dw_db[1].data_ptr(),
                         n_rows=n, d=d, n_blocks=n_blocks,
-                        dropout=_dropout(rate, seed, EPILOGUE_DIRECTION, row0))
+                        dropout=_dropout(rate, seed, EPILOGUE_DIRECTION, row0,
+                                         seed_slot=seed_slot))
     _rowwise.launch("epilogue", "epilogue_bwd", problem, h)
     LAUNCHES["epilogue_bwd"] += 1
     return dh, dres, dw_db[0], dw_db[1]
 
 
 class FusedEpilogueFn(torch.autograd.Function):
-    """B5 forward, B6 backward (plain versions for CPU tensors)."""
+    """B5 forward, B6 backward (plain versions for CPU tensors);
+    ``seed_slot`` where the kernels read the seed (``_dropout``)."""
 
     @staticmethod
-    def forward(ctx, h, res, weight, bias, dropout_rate, seed, row0):
+    def forward(ctx, h, res, weight, bias, dropout_rate, seed, row0,
+                seed_slot=None):
         ctx.rate, ctx.seed, ctx.row0, ctx.shape = dropout_rate, seed, row0, h.shape
+        ctx.seed_slot = seed_slot
         ctx.on_cpu = _on_cpu(h, res, weight, bias)
         if ctx.on_cpu:
             ctx.save_for_backward(h, res, weight)
             return epilogue_reference(h, res, weight, bias, dropout_rate, seed,
                                       row0)
         out, operands = _epilogue_fwd(h, res, weight, bias, dropout_rate, seed,
-                                      row0)
+                                      row0, seed_slot=seed_slot)
         ctx.save_for_backward(*operands)
         return out.view(h.shape)
 
@@ -238,25 +244,29 @@ class FusedEpilogueFn(torch.autograd.Function):
                                                       ctx.row0)
         else:
             dh, dres, dw, db = _epilogue_bwd(h, res, weight, do, ctx.rate,
-                                             ctx.seed, ctx.row0)
+                                             ctx.seed, ctx.row0,
+                                             seed_slot=ctx.seed_slot)
         return (dh.view(ctx.shape), dres.view(ctx.shape), dw, db, None, None,
-                None)
+                None, None)
 
 
 def fused_dropout_add_ln(h, res, weight, bias, *, dropout_rate: float = 0.0,
-                         seed: int = 0, row0: int = 0):
+                         seed: int = 0, row0: int = 0,
+                         seed_slot: Optional[SeedSlot] = None):
     """B5: LayerNorm(dropout(h) + res) over the last dim; its gradient is
     B6.
 
     h, res: [..., D] of one dtype (bf16 or f32 on the card, D a multiple of
     128 up to 1024); weight, bias: [D] f32; ``seed`` is the call's 64-bit
-    dropout seed and ``row0`` its first global row (0 in one process).
+    dropout seed and ``row0`` its first global row (0 in one process);
+    ``seed_slot`` (table, index), where given, is where the kernels read
+    the seed on the device instead (``ops/attention.py:_dropout``).
     Returns h's shape and dtype."""
     if _records_grad(h, res, weight, bias):
         return FusedEpilogueFn.apply(h, res, weight, bias, float(dropout_rate),
-                                     int(seed), int(row0))
+                                     int(seed), int(row0), seed_slot)
     if _on_cpu(h, res, weight, bias):
         return epilogue_reference(h, res, weight, bias, dropout_rate, seed,
                                   row0)
     return _epilogue_fwd(h, res, weight, bias, dropout_rate, seed,
-                         row0)[0].view(h.shape)
+                         row0, seed_slot=seed_slot)[0].view(h.shape)

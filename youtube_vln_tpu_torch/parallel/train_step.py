@@ -23,6 +23,20 @@ transport dtype (float16) here; the model upcasts them.
 sites), the task losses, the backward, the ``AdamWRef`` update and zeroed
 gradients.  Its metrics stay device tensors: nothing is read back.
 
+On one CUDA device the forward, the losses and the backward run as one
+CUDA graph (``StepGraph``), captured at the first call and replayed at
+every later one whose batch has the captured shapes and dtypes; the
+optimizer stays eager and reads the gradients the graph leaves in place,
+which stay allocated between steps.  Each replay draws its own dropout
+masks: the kernels read their seeds from a device table the host rewrites
+before the replay, and the other sites draw from one generator that lives
+with the graph and is re-seeded before it, so a replayed step computes
+what the eager step computes from the same seed.  A process group, a
+model axis, gradient accumulation, the CPU, recomputed blocks (``remat``),
+the attention sites' plain versions, changed model settings and a batch
+unlike the captured one run the eager step; ``GRAPH_COUNTS`` counts the
+captures, the replays and the eager steps by reason.
+
 Under a process group (``parallel/distributed.py``) the step wraps the
 model in ``DistributedDataParallel`` and keeps the JAX package's
 global-batch semantics: each rank's loss is its share of the global
@@ -43,12 +57,14 @@ replicated embedding tables are averaged over the model ranks
 from __future__ import annotations
 
 import contextlib
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
 from ..config import RunConfig
 from ..device import resolve_device, to_device
+from ..models.layers import DropoutRng
+from ..ops import attention, epilogue, layer_norm
 from ..ops.philox import site_seed
 from ..training import losses as losses_lib
 from ..training.optimization import AdamWRef, make_schedule, param_groups
@@ -62,6 +78,22 @@ MAX_LANGUAGE_TARGETS = 32
 # micro-step i of an accumulated step with seed s runs with seed
 # site_seed(s, MICRO_STEP_SITE + i), apart from the model's own sites
 MICRO_STEP_SITE = 1 << 32
+
+# why a train step ran eagerly instead of replaying the graph: a process
+# group, a model axis, gradient accumulation, the CPU, model settings that
+# rule a graph out or differ from the captured ones, a batch of other
+# shapes or dtypes than the captured one
+EAGER_REASONS = ("ddp", "model_axis", "accumulation", "cpu", "settings", "shape")
+# graph captures, replays and eager steps (eager_<reason>) of every
+# build_train_step's step, counted where they run
+GRAPH_COUNTS = dict.fromkeys(("captures", "replays")
+                             + tuple(f"eager_{r}" for r in EAGER_REASONS), 0)
+_LAUNCH_COUNTERS = (attention.LAUNCHES, epilogue.LAUNCHES, layer_norm.LAUNCHES)
+
+
+def reset_graph_counts() -> None:
+    for name in GRAPH_COUNTS:
+        GRAPH_COUNTS[name] = 0
 
 
 def _gather_candidates(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -268,6 +300,125 @@ def _refuse_batch_expansion(cfg) -> None:
             f"{world} always gives N > 1")
 
 
+def _signature(batch: Dict[str, torch.Tensor]) -> tuple:
+    return tuple(sorted((k, tuple(v.shape), v.dtype) for k, v in batch.items()))
+
+
+def _settings(cfg) -> str:
+    """The model's settings as they stand, to tell a change from the
+    captured ones."""
+    return repr(sorted(vars(cfg).items()))
+
+
+def _launch_counts() -> List[Dict[str, int]]:
+    return [dict(c) for c in _LAUNCH_COUNTERS]
+
+
+class StepGraph:
+    """The forward, the losses and the backward of a one-device train step
+    as one ``torch.cuda.CUDAGraph``.
+
+    ``run(batch, seed)`` captures at its first call: an eager warm-up on a
+    side stream (the first batch and seed; its gradients are thrown away),
+    then the capture, reading a copy of the batch that the graph keeps as
+    its inputs, with a ``DropoutRng`` that holds the graph's generator and
+    seed table.  Every call (the first too) then copies the batch into the
+    inputs, writes the step's kernel seeds (``DropoutRng.seed_table_of``)
+    into the table through pinned memory on the step's stream, re-seeds
+    the generator as a fresh ``DropoutRng`` would seed its own, and
+    replays: the kernels read their seeds from the table, the other sites
+    draw the generator's bits from its replayed offsets, and the masks
+    are the eager step's.  The graph's gradient tensors stay allocated
+    from one replay to the next and are handed to the parameters' ``.grad``
+    before each replay, which writes them whole: between steps the step's
+    ``zero_grad`` leaves ``.grad`` None, as the eager step does, so an
+    eager backward in between adds onto nothing of the graph's.  The
+    returned metrics are clones of the graph's, which the next replay
+    overwrites.  The kernels' launch counters (``LAUNCHES`` of
+    ``ops/attention.py``, ``ops/epilogue.py``, ``ops/layer_norm.py``)
+    count each replay's captured launches, as an eager step counts its
+    own, and neither the warm-up's, a step thrown away, nor the capture's,
+    which launches nothing.
+
+    Spans ``step.capture`` (warm-up and capture, once) and
+    ``step.replay`` (inputs, seed table, replay: the host time to issue
+    the graphed part)."""
+
+    def __init__(self, net: torch.nn.Module, params, tasks: Dict[str, Any],
+                 device: torch.device):
+        self.net, self.params, self.tasks, self.device = net, params, tasks, device
+        self.generator = torch.Generator(device=device)
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.key = None
+
+    def matches(self, key) -> bool:
+        """Whether a step of ``key`` (batch signature, model settings) may
+        replay: nothing captured yet, or this key captured."""
+        return self.graph is None or key == self.key
+
+    def _capture(self, batch: Dict[str, torch.Tensor], seed: int, key) -> None:
+        device, net, tasks = self.device, self.net, self.tasks
+        before = _launch_counts()
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            rng = DropoutRng(seed, device, generator=self.generator)
+            loss_fn(net, batch, tasks, rng)[0].backward()
+        torch.cuda.current_stream(device).wait_stream(side)
+        sites = rng.sites
+        for p in self.params:
+            p.grad = None
+        self.inputs = {k: v.clone() for k, v in batch.items()}
+        self.table = torch.zeros(sites, dtype=torch.int64, device=device)
+        # the generator re-seeded and the site counter at 0, as the warm-up
+        # found them, so the captured draws are the first step's
+        rng = DropoutRng(seed, device, generator=self.generator,
+                         seed_table=self.table if sites else None)
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(self.generator)
+        warmed = _launch_counts()
+        # torch.cuda.graph synchronises and empties the eager cache first:
+        # the graph's pool sits beside it; thread-local mode lets the feed
+        # thread go on with its copies and pinned buffers meanwhile
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            loss, metrics = loss_fn(net, self.inputs, tasks, rng)
+            loss.backward()
+        if rng.sites != sites:
+            raise RuntimeError(f"the captured forward took {rng.sites} kernel "
+                               f"seeds, the warm-up {sites}")
+        self.launches = [{k: counter[k] - was[k] for k in counter}
+                         for counter, was in zip(_LAUNCH_COUNTERS, warmed)]
+        for counter, was in zip(_LAUNCH_COUNTERS, before):
+            counter.update(was)
+        self.metrics = {k: v.detach() for k, v in metrics.items()}
+        self.grads = [p.grad for p in self.params]
+        self.sites, self.graph, self.key = sites, graph, key
+        GRAPH_COUNTS["captures"] += 1
+
+    def run(self, batch: Dict[str, torch.Tensor], seed: int, key
+            ) -> Dict[str, torch.Tensor]:
+        if self.graph is None:
+            with spans.span("step.capture"):
+                self._capture(batch, seed, key)
+        with spans.span("step.replay"):
+            for k, v in self.inputs.items():
+                v.copy_(batch[k], non_blocking=True)
+            if self.sites:
+                table = torch.tensor(DropoutRng.seed_table_of(seed, self.sites),
+                                     dtype=torch.int64).pin_memory()
+                self.table.copy_(table, non_blocking=True)
+            self.generator.manual_seed(DropoutRng.generator_seed(seed))
+            for p, g in zip(self.params, self.grads):
+                if p.grad is not g:
+                    p.grad = g
+            self.graph.replay()
+            for counter, delta in zip(_LAUNCH_COUNTERS, self.launches):
+                for k, n in delta.items():
+                    counter[k] += n
+            GRAPH_COUNTS["replays"] += 1
+            return {k: v.clone() for k, v in self.metrics.items()}
+
+
 def build_train_step(model: torch.nn.Module, cfg, args: RunConfig,
                      optimizer: torch.optim.Optimizer, device="cuda"
                      ) -> Callable[[Dict, int], Dict[str, torch.Tensor]]:
@@ -279,9 +430,12 @@ def build_train_step(model: torch.nn.Module, cfg, args: RunConfig,
     dropout seed, drawn by the caller on the host and the same on every
     rank; ``cfg`` is the model's configuration, checked against the tasks
     of ``args``.  Under a process group the model is wrapped in DDP, which
-    synchronises the gradients at the last micro-step alone.  A call is a
-    ``step`` span around ``step.forward`` and ``step.backward`` (each
-    micro-step's) and ``step.optimizer``: host time to issue the work."""
+    synchronises the gradients at the last micro-step alone.  On one CUDA
+    device the forward and backward replay a ``StepGraph`` wherever they
+    may (the module's docstring; ``GRAPH_COUNTS``).  A call is a ``step``
+    span around ``step.capture`` and ``step.replay``, or else
+    ``step.forward`` and ``step.backward`` (each micro-step's), and
+    ``step.optimizer``: host time to issue the work."""
     device = resolve_device(device)
     _check_model(model, cfg, args, device)
     _refuse_batch_expansion(cfg)
@@ -294,39 +448,74 @@ def build_train_step(model: torch.nn.Module, cfg, args: RunConfig,
     world, rank = distributed.data_world(), distributed.data_rank()
     net = data_parallel(model, device) if grouped else model
     total_counts = distributed.sum_across_data if grouped else None
+    if device.type != "cuda":
+        fixed = "cpu"
+    elif grouped:
+        fixed = "ddp"
+    elif shard is not None and shard.world > 1:
+        fixed = "model_axis"
+    elif accum > 1:
+        fixed = "accumulation"
+    else:
+        fixed = None
+    graph = None if fixed else StepGraph(net, params, tasks, device)
+
+    def eager_reason(batch) -> Tuple[Optional[str], Any]:
+        """(why the step runs eagerly or None, the graph's key)."""
+        if fixed:
+            return fixed, None
+        # recomputed blocks restore their generator's state, and the plain
+        # attention versions take their seeds as constants: neither replays
+        if getattr(cfg, "remat", False) or not cfg.use_attention_kernels:
+            return "settings", None
+        key = (_signature(batch), _settings(cfg))
+        if graph.matches(key):
+            return None, key
+        return ("shape" if key[0] != graph.key[0] else "settings"), None
+
+    def eager(batch, seed: int) -> Dict[str, torch.Tensor]:
+        micro = ([batch] if accum == 1 else
+                 [{k: v[i] for k, v in batch.items()} for i in range(accum)])
+        metrics: Dict[str, torch.Tensor] = {}
+        for i, mb in enumerate(micro):
+            mb_seed = seed if accum == 1 else site_seed(seed, MICRO_STEP_SITE + i)
+            sync = (net.no_sync() if grouped and i < accum - 1
+                    else contextlib.nullcontext())
+            with sync:
+                with spans.span("step.forward"):
+                    loss, m = loss_fn(net, mb, tasks, mb_seed, rank, total_counts)
+                with spans.span("step.backward"):
+                    # DDP averages the gradients of the data ranks' shares
+                    (loss * world if world > 1 else loss).backward()
+            for k, v in m.items():
+                metrics[k] = metrics[k] + v.detach() if k in metrics else v.detach()
+        if shard is not None:
+            # the replicated embedding tables, equal on every model rank
+            average_over_model([p.grad for p in synced if p.grad is not None],
+                               shard)
+        if accum > 1:
+            torch._foreach_div_([p.grad for p in params if p.grad is not None],
+                                float(accum))
+            metrics = {k: v / accum if k.startswith("loss/") else v
+                       for k, v in metrics.items()}
+        if grouped:
+            metrics = _sum_metrics(metrics)
+        return metrics
 
     def step(batch, seed: int) -> Dict[str, torch.Tensor]:
         with spans.span("step"):
             net.train()
             batch = to_device(batch, device)
-            micro = ([batch] if accum == 1 else
-                     [{k: v[i] for k, v in batch.items()} for i in range(accum)])
-            metrics: Dict[str, torch.Tensor] = {}
-            for i, mb in enumerate(micro):
-                mb_seed = seed if accum == 1 else site_seed(seed, MICRO_STEP_SITE + i)
-                sync = (net.no_sync() if grouped and i < accum - 1
-                        else contextlib.nullcontext())
-                with sync:
-                    with spans.span("step.forward"):
-                        loss, m = loss_fn(net, mb, tasks, mb_seed, rank, total_counts)
-                    with spans.span("step.backward"):
-                        # DDP averages the gradients of the data ranks' shares
-                        (loss * world if world > 1 else loss).backward()
-                for k, v in m.items():
-                    metrics[k] = metrics[k] + v.detach() if k in metrics else v.detach()
-            if shard is not None:
-                # the replicated embedding tables, equal on every model rank
-                average_over_model([p.grad for p in synced if p.grad is not None],
-                                   shard)
-            if accum > 1:
-                torch._foreach_div_([p.grad for p in params if p.grad is not None],
-                                    float(accum))
-                metrics = {k: v / accum if k.startswith("loss/") else v
-                           for k, v in metrics.items()}
-            if grouped:
-                metrics = _sum_metrics(metrics)
+            reason, key = eager_reason(batch)
+            if reason is None:
+                metrics = graph.run(batch, seed, key)
+            else:
+                GRAPH_COUNTS[f"eager_{reason}"] += 1
+                metrics = eager(batch, seed)
             with spans.span("step.optimizer"):
                 optimizer.step()
+                # the graph keeps its gradient tensors and hands them back
+                # before its next replay
                 optimizer.zero_grad(set_to_none=True)
             return metrics
 
